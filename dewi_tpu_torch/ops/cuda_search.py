@@ -1,0 +1,316 @@
+"""Stage-1 search kernels: CUDA wrappers, their plain versions, launch counts.
+
+Counterpart of ``dewi_tpu/ops/pallas_search.py``.  Four of its Pallas
+kernels lie on the search path and are ported here as hand-written CUDA
+(``dewi_tpu_torch/csrc/search_kernels.cu``):
+
+=========================  =========================================  ==========================
+wrapper                    replaces (dewi_tpu/ops/pallas_search.py)   called from
+=========================  =========================================  ==========================
+``bmax_s4``                ``pallas_bmax_s4`` :661                    int4 tier, fused route
+``scores_matrix_s4``       ``pallas_scores_matrix_s4`` :470           int4 tier, unfused route
+``bmax``                   ``pallas_bmax`` :559                       int8 tier, fused route
+``scores_matrix``          ``pallas_scores_matrix`` :309              exact bf16 tier; int8 unfused
+=========================  =========================================  ==========================
+
+Each wrapper checks device, dtype, shape and contiguity and raises on
+anything else.  On a CUDA tensor it launches its kernel on the current
+stream (built at first use, see ``_build.py``), once per group of at most
+32 queries (fewer where the queries of a wide dim do not fit in shared
+memory), and adds one to its entry in ``launch_counts`` per launch; on a
+CPU tensor it returns its plain PyTorch version,
+which the CPU tests hold against the JAX package and ``chip_smoke.py``
+holds the kernel against on the card.  There is no fallback from the
+kernel to the plain version.
+
+Bound on an H100 (3.35 TB/s): all four are memory-bound at Q <= 32.  At
+1M x 256, Q=1 they move 142.6 MB (``bmax_s4``), 146.8 MB
+(``scores_matrix_s4``), 276.8 MB (``bmax``, int8 rows) and 549.5 MB
+(``scores_matrix``, bf16 rows): 42.6, 43.8, 82.6 and 164 us.
+
+torch has no integer matmul on CUDA, so the plain int4 version computes
+the s8 x s4 dot in f32 from the integer values, which is exact
+(|acc| <= 128 * 8 * D < 2^24 for D < 16384).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+# Routing constants of the JAX package (pallas_search.py:293, 521-522).
+# They only gate which algorithm an index configuration takes, so that the
+# port routes as the reference does; the CUDA kernels tile as they like.
+SCORES_BLOCK = 8192
+BMAX_BLOCK = 16384
+BLOCKMAX_SUB = 128
+MAX_QUERIES = 32  # queries per launch: the kernel keeps them all on chip
+# Corpus kinds of dewi_queries_per_launch.
+_KIND_INT8, _KIND_BF16, _KIND_S4 = 0, 1, 2
+
+launch_counts: Dict[str, int] = {
+    "bmax_s4": 0, "scores_matrix_s4": 0, "bmax": 0, "scores_matrix": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_common(name: str, emb: torch.Tensor, mult: torch.Tensor,
+                  add: torch.Tensor, nq: int, *others: torch.Tensor) -> None:
+    cap = emb.shape[0]
+    _require(emb.dim() == 2, f"{name}: corpus must be 2-D, got {tuple(emb.shape)}")
+    _require(cap > 0 and cap % BLOCKMAX_SUB == 0,
+             f"{name}: capacity {cap} must be a positive multiple of {BLOCKMAX_SUB}")
+    _require(nq >= 1, f"{name}: no queries")
+    for t, what in ((mult, "mult"), (add, "add")):
+        _require(t.dtype == torch.float32 and tuple(t.shape) == (cap,),
+                 f"{name}: {what} must be float32 [{cap}], got "
+                 f"{t.dtype} {tuple(t.shape)}")
+    tensors = (emb, mult, add) + others
+    for t in tensors:
+        _require(t.device == emb.device,
+                 f"{name}: all tensors must be on {emb.device}, got {t.device}")
+        _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+    _require(emb.device.type in ("cpu", "cuda"),
+             f"{name}: unsupported device {emb.device}")
+    if emb.device.type == "cuda":  # the kernels copy rows 16 bytes at a time
+        _require(emb.data_ptr() % 16 == 0, f"{name}: corpus must be 16-byte aligned")
+
+
+def _check_float_query(name: str, emb: torch.Tensor, queries: torch.Tensor) -> None:
+    _require(emb.dtype in (torch.int8, torch.bfloat16),
+             f"{name}: corpus must be int8 or bfloat16, got {emb.dtype}")
+    _require(queries.dtype == torch.float32 and queries.dim() == 2
+             and queries.shape[1] == emb.shape[1],
+             f"{name}: queries must be float32 [Q, {emb.shape[1]}], got "
+             f"{queries.dtype} {tuple(queries.shape)}")
+    if emb.device.type == "cuda":
+        step = 16 if emb.dtype == torch.int8 else 8
+        _require(emb.shape[1] % step == 0,
+                 f"{name}: dim {emb.shape[1]} must be a multiple of {step}")
+
+
+def _check_s4_query(name: str, emb_s4: torch.Tensor, q_i8: torch.Tensor,
+                    q_scale: torch.Tensor) -> None:
+    _require(emb_s4.dtype == torch.int8,
+             f"{name}: packed corpus must be int8, got {emb_s4.dtype}")
+    d = 2 * emb_s4.shape[1]
+    _require(q_i8.dtype == torch.int8 and q_i8.dim() == 2 and q_i8.shape[1] == d,
+             f"{name}: queries must be int8 [Q, {d}] (packed dim is D/2), got "
+             f"{q_i8.dtype} {tuple(q_i8.shape)}")
+    _require(q_scale.dtype == torch.float32
+             and tuple(q_scale.shape) == (q_i8.shape[0],),
+             f"{name}: q_scale must be float32 [{q_i8.shape[0]}]")
+    if emb_s4.device.type == "cuda":
+        _require(d % 32 == 0, f"{name}: dim {d} must be a multiple of 32")
+
+
+def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
+    _require(out_dtype in (torch.float32, torch.bfloat16),
+             f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+
+
+def _library() -> object:
+    from ._build import load_library
+
+    return load_library()
+
+
+def _launch(name: str, fn_name: str, *args: object) -> None:
+    lib = _library()
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        msg = lib.dewi_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+    launch_counts[name] += 1
+
+
+def _group(name: str, kind: int, d: int) -> int:
+    """Queries per launch at dim ``d``: MAX_QUERIES unless their shared
+    memory does not fit, then the most that does."""
+    g = int(_library().dewi_queries_per_launch(kind, d))
+    _require(g > 0, f"{name}: dim {d} too wide for one query in shared memory")
+    return min(g, MAX_QUERIES)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---- plain versions -----------------------------------------------------
+
+
+def _bf16_dot(emb: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """``bf16(q) . row`` in f32: both operands are bf16-exact, so each
+    product is exact and only the order of the sum differs from the kernel."""
+    return queries.to(torch.bfloat16).float() @ emb.float().T
+
+
+def _s4_dot(emb_s4: torch.Tensor, q_i8: torch.Tensor) -> torch.Tensor:
+    """``_s4_acc``'s two plane dots (pallas_search.py:428), exact in f32."""
+    hi = (emb_s4 >> 4).float()              # dims [0, D/2): signed high nibble
+    lo = ((emb_s4 & 15) - 8).float()        # dims [D/2, D): low nibble - 8
+    d2 = emb_s4.shape[1]
+    q = q_i8.float()
+    return q[:, :d2] @ hi.T + q[:, d2:] @ lo.T
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` with one f32 rounding, as the kernels' ``fmaf`` and
+    XLA's contracted epilogue: the f32 product is exact in f64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _blockmax(adj: torch.Tensor) -> torch.Tensor:
+    nq, cap = adj.shape
+    return adj.view(nq, cap // BLOCKMAX_SUB, BLOCKMAX_SUB).amax(dim=-1)
+
+
+def scores_matrix_plain(emb: torch.Tensor, mult: torch.Tensor,
+                        add: torch.Tensor, queries: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _fma(_bf16_dot(emb, queries), mult, add).to(out_dtype)
+
+
+def bmax_plain(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+               queries: torch.Tensor) -> torch.Tensor:
+    return _blockmax(scores_matrix_plain(emb, mult, add, queries))
+
+
+def scores_matrix_s4_plain(emb_s4: torch.Tensor, mult: torch.Tensor,
+                           add: torch.Tensor, q_i8: torch.Tensor,
+                           q_scale: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    acc = _s4_dot(emb_s4, q_i8)
+    return _fma(acc, q_scale[:, None] * mult[None, :], add).to(out_dtype)
+
+
+def bmax_s4_plain(emb_s4: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+                  q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    return _blockmax(scores_matrix_s4_plain(emb_s4, mult, add, q_i8, q_scale))
+
+
+# ---- kernel wrappers ----------------------------------------------------
+
+
+def scores_matrix(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+                  queries: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Stage 1 over int8 or bf16 rows: ``[Q, cap]`` adjusted scores.
+
+    ``adj = (bf16(q) . row) * mult + add``.  Replaces ``pallas_scores_matrix``
+    (dewi_tpu/ops/pallas_search.py:309).  Bound: bytes (corpus + mult/add
+    read, ``[Q, cap]`` written).
+    """
+    name = "scores_matrix"
+    _check_common(name, emb, mult, add, queries.shape[0], queries)
+    _check_float_query(name, emb, queries)
+    _check_out_dtype(name, out_dtype)
+    if emb.device.type == "cpu":
+        return scores_matrix_plain(emb, mult, add, queries, out_dtype)
+    nq, cap = queries.shape[0], emb.shape[0]
+    out = torch.empty((nq, cap), dtype=out_dtype, device=emb.device)
+    kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
+    g = _group(name, kind, emb.shape[1])
+    for i in range(0, nq, g):
+        q, o = queries[i:i + g], out[i:i + g]
+        _launch(name, "dewi_scores_matrix", emb.data_ptr(),
+                int(emb.dtype == torch.bfloat16), q.data_ptr(), mult.data_ptr(),
+                add.data_ptr(), o.data_ptr(), int(out_dtype == torch.bfloat16),
+                q.shape[0], emb.shape[1], cap, _stream(emb))
+    return out
+
+
+def bmax(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+         queries: torch.Tensor) -> torch.Tensor:
+    """Fused stage 1 + 128-row block max: ``[Q, cap/128]`` f32.
+
+    Replaces ``pallas_bmax`` (dewi_tpu/ops/pallas_search.py:559).  Bound:
+    bytes (corpus + mult/add read; only the maxima are written).
+    """
+    name = "bmax"
+    _check_common(name, emb, mult, add, queries.shape[0], queries)
+    _check_float_query(name, emb, queries)
+    if emb.device.type == "cpu":
+        return bmax_plain(emb, mult, add, queries)
+    nq, cap = queries.shape[0], emb.shape[0]
+    out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32,
+                      device=emb.device)
+    kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
+    g = _group(name, kind, emb.shape[1])
+    for i in range(0, nq, g):
+        q, o = queries[i:i + g], out[i:i + g]
+        _launch(name, "dewi_bmax", emb.data_ptr(), int(emb.dtype == torch.bfloat16),
+                q.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
+                q.shape[0], emb.shape[1], cap, _stream(emb))
+    return out
+
+
+def scores_matrix_s4(emb_s4: torch.Tensor, mult: torch.Tensor,
+                     add: torch.Tensor, q_i8: torch.Tensor,
+                     q_scale: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int4 stage 1: ``[Q, cap]`` of ``acc * (q_scale * mult) + add``.
+
+    ``acc`` is the exact int32 dot of the s8 query with the nibble-packed
+    row.  Replaces ``pallas_scores_matrix_s4``
+    (dewi_tpu/ops/pallas_search.py:470).  Bound: bytes.
+    """
+    name = "scores_matrix_s4"
+    _check_common(name, emb_s4, mult, add, q_i8.shape[0], q_i8, q_scale)
+    _check_s4_query(name, emb_s4, q_i8, q_scale)
+    _check_out_dtype(name, out_dtype)
+    if emb_s4.device.type == "cpu":
+        return scores_matrix_s4_plain(emb_s4, mult, add, q_i8, q_scale, out_dtype)
+    nq, cap = q_i8.shape[0], emb_s4.shape[0]
+    out = torch.empty((nq, cap), dtype=out_dtype, device=emb_s4.device)
+    g = _group(name, _KIND_S4, q_i8.shape[1])
+    for i in range(0, nq, g):
+        q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
+        _launch(name, "dewi_scores_matrix_s4", emb_s4.data_ptr(), q.data_ptr(),
+                qs.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
+                int(out_dtype == torch.bfloat16), q.shape[0], q.shape[1], cap,
+                _stream(emb_s4))
+    return out
+
+
+def bmax_s4(emb_s4: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+            q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    """Fused int4 stage 1 + 128-row block max: ``[Q, cap/128]`` f32.
+
+    Replaces ``pallas_bmax_s4`` (dewi_tpu/ops/pallas_search.py:661), the
+    int4 tier's default stage 1.  Bound: bytes (packed corpus + mult/add).
+    """
+    name = "bmax_s4"
+    _check_common(name, emb_s4, mult, add, q_i8.shape[0], q_i8, q_scale)
+    _check_s4_query(name, emb_s4, q_i8, q_scale)
+    if emb_s4.device.type == "cpu":
+        return bmax_s4_plain(emb_s4, mult, add, q_i8, q_scale)
+    nq, cap = q_i8.shape[0], emb_s4.shape[0]
+    out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32,
+                      device=emb_s4.device)
+    g = _group(name, _KIND_S4, q_i8.shape[1])
+    for i in range(0, nq, g):
+        q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
+        _launch(name, "dewi_bmax_s4", emb_s4.data_ptr(), q.data_ptr(),
+                qs.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
+                q.shape[0], q.shape[1], cap, _stream(emb_s4))
+    return out
+
+
+__all__ = [
+    "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES",
+    "launch_counts", "reset_launch_counts",
+    "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
+    "scores_matrix_plain", "bmax_plain", "scores_matrix_s4_plain",
+    "bmax_s4_plain",
+]

@@ -1,0 +1,285 @@
+"""Stage-1 kernels of the port against the JAX package's Pallas kernels.
+
+Each plain version in ``dewi_tpu_torch/ops/cuda_search.py`` (what a
+wrapper computes for a CPU tensor) is held against its Pallas function
+run in interpret mode, on the same seeded numpy inputs, with padding rows
+masked through ``add = -inf``.  Tolerances: int4 kernels rtol 1e-6 (the
+integer accumulator is exact, the f32 epilogue is the same association);
+bf16-dot kernels rtol 1e-5 and atol 1e-5 of the largest |score| (only the
+order of the f32 sum differs, and its rounding scales with the terms).
+The quantizers must match bit for bit.
+
+The tests marked ``cuda`` hold each CUDA kernel against its plain version
+and skip without a card.  They import no JAX, so on the card they run
+alone: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dewi_tpu_torch.ops import cuda_search as cs
+from dewi_tpu_torch.ops import quantized as tq
+
+CAP, D = 4096, 64
+N_LIVE = 3900  # rows >= N_LIVE are padding: add = -inf
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's kernels and quantizers (imported lazily, so the
+    card-only tests of this file run where JAX is not installed)."""
+    import jax.numpy as jnp
+    from dewi_tpu.ops import pallas_search, quantized
+
+    return jnp, pallas_search, quantized
+
+
+def _inputs(nq, seed, bf16_corpus=False):
+    rng = np.random.default_rng(seed)
+    if bf16_corpus:
+        emb = rng.normal(size=(CAP, D)).astype(np.float32)
+    else:
+        emb = rng.integers(-127, 128, size=(CAP, D)).astype(np.int8)
+    vals = rng.integers(-7, 8, size=(CAP, D)).astype(np.int8)
+    packed = (vals[:, : D // 2] * 16 + (vals[:, D // 2:] + 8)).astype(np.int8)
+    mult = rng.uniform(0.5, 1.5, size=CAP).astype(np.float32)
+    add = rng.normal(size=CAP).astype(np.float32)
+    add[N_LIVE:] = -np.inf
+    q = rng.normal(size=(nq, D)).astype(np.float32)
+    q8 = rng.integers(-127, 128, size=(nq, D)).astype(np.int8)
+    qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
+    return emb, packed, mult, add, q, q8, qs
+
+
+def _corpus_pair(jnp, emb, bf16_corpus):
+    """The same corpus for both packages (bf16 rounding is RNE in both)."""
+    if bf16_corpus:
+        return jnp.asarray(emb).astype(jnp.bfloat16), torch.from_numpy(emb).to(torch.bfloat16)
+    return jnp.asarray(emb), torch.from_numpy(emb)
+
+
+def _assert_match(port, ref, rtol, atol):
+    """``atol`` is relative to the largest |score|: the f32 sum's rounding
+    error scales with its terms, not with a result near zero."""
+    port = port.float().numpy()
+    ref = np.asarray(ref, dtype=np.float32)
+    assert port.shape == ref.shape
+    np.testing.assert_array_equal(np.isneginf(port), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    scale = float(np.abs(ref[fin]).max())
+    np.testing.assert_allclose(port[fin], ref[fin], rtol=rtol, atol=atol * scale)
+
+
+T = torch.from_numpy
+
+
+class TestPlainVsPallas:
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    def test_bmax_s4(self, jx, nq):
+        jnp, ps, _ = jx
+        _, packed, mult, add, _, q8, qs = _inputs(nq, 1)
+        ref = ps.pallas_bmax_s4(jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add),
+                                jnp.asarray(q8), jnp.asarray(qs), block=1024,
+                                interpret=True)
+        port = cs.bmax_s4(T(packed), T(mult), T(add), T(q8), T(qs))
+        _assert_match(port, ref, rtol=1e-6, atol=0)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    @pytest.mark.parametrize("bf16_out", [False, True])
+    def test_scores_matrix_s4(self, jx, nq, bf16_out):
+        jnp, ps, _ = jx
+        _, packed, mult, add, _, q8, qs = _inputs(nq, 2)
+        ref = ps.pallas_scores_matrix_s4(
+            jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q8),
+            jnp.asarray(qs), block=1024, interpret=True,
+            out_dtype=jnp.bfloat16 if bf16_out else jnp.float32)
+        port = cs.scores_matrix_s4(T(packed), T(mult), T(add), T(q8), T(qs),
+                                   out_dtype=torch.bfloat16 if bf16_out else torch.float32)
+        assert port.dtype == (torch.bfloat16 if bf16_out else torch.float32)
+        _assert_match(port, ref, rtol=1e-6, atol=0)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    @pytest.mark.parametrize("bf16_corpus", [False, True])
+    def test_bmax(self, jx, nq, bf16_corpus):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 3, bf16_corpus)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_bmax(je, jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q),
+                             block=1024, interpret=True)
+        port = cs.bmax(te, T(mult), T(add), T(q))
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    @pytest.mark.parametrize("bf16_corpus", [False, True])
+    def test_scores_matrix(self, jx, nq, bf16_corpus):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 4, bf16_corpus)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_scores_matrix(je, jnp.asarray(mult), jnp.asarray(add),
+                                      jnp.asarray(q), block=1024, interpret=True)
+        port = cs.scores_matrix(te, T(mult), T(add), T(q))
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
+    def test_scores_matrix_bf16_out(self, jx):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(5, 5)
+        ref = ps.pallas_scores_matrix(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                      jnp.asarray(q), block=1024, interpret=True,
+                                      out_dtype=jnp.bfloat16)
+        port = cs.scores_matrix(T(emb), T(mult), T(add), T(q), out_dtype=torch.bfloat16)
+        # One bf16 ulp: the f32 scores may differ in the last bits before rounding.
+        _assert_match(port, ref, rtol=2 ** -7, atol=1e-5)
+
+
+class TestQuantizersBitExact:
+    @pytest.mark.parametrize("shape", [(64, 32), (257, 64), (16, 256)])
+    def test_quantize_rows(self, jx, shape):
+        jnp, _, jq = jx
+        x = np.random.default_rng(6).normal(size=shape).astype(np.float32)
+        x[3] = 0.0  # zero row: scale 0, codes 0
+        ref_q, ref_s = jq.quantize_rows(jnp.asarray(x))
+        q, s = tq.quantize_rows(T(x))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(ref_q))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+
+    @pytest.mark.parametrize("shape", [(64, 32), (257, 64), (16, 256)])
+    def test_quantize_rows_int4_and_unpack(self, jx, shape):
+        jnp, _, jq = jx
+        x = np.random.default_rng(7).normal(size=shape).astype(np.float32)
+        x[3] = 0.0
+        ref_p, ref_s = jq.quantize_rows_int4(jnp.asarray(x))
+        p, s = tq.quantize_rows_int4(T(x))
+        np.testing.assert_array_equal(p.numpy(), np.asarray(ref_p))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+        np.testing.assert_array_equal(tq.unpack_int4(p).numpy(),
+                                      np.asarray(jq.unpack_int4(ref_p)))
+
+    def test_unpack_every_byte(self, jx):
+        jnp, _, jq = jx
+        b = np.arange(-128, 128, dtype=np.int8).reshape(8, 32)
+        np.testing.assert_array_equal(tq.unpack_int4(T(b)).numpy(),
+                                      np.asarray(jq.unpack_int4(jnp.asarray(b))))
+
+
+class TestWrapperChecks:
+    def test_rejects_bad_inputs(self):
+        _, packed, mult, add, q, q8, qs = _inputs(3, 8)
+        e8 = T(np.zeros((CAP, D), np.int8))
+        with pytest.raises(ValueError, match="queries"):
+            cs.scores_matrix(e8, T(mult), T(add), T(q).double())
+        with pytest.raises(ValueError, match="mult"):
+            cs.bmax(e8, T(mult)[:-1], T(add), T(q))
+        with pytest.raises(ValueError, match="multiple of 128"):
+            cs.bmax(e8[:1000], T(mult)[:1000], T(add)[:1000], T(q))
+        with pytest.raises(ValueError, match="no queries"):
+            cs.bmax_s4(T(packed), T(mult), T(add), T(np.zeros((0, D), np.int8)),
+                       T(np.ones(0, np.float32)))
+        with pytest.raises(ValueError, match="D/2"):
+            cs.scores_matrix_s4(T(packed), T(mult), T(add), T(q8[:, :32].copy()), T(qs))
+        with pytest.raises(ValueError, match="contiguous"):
+            cs.scores_matrix(e8, T(mult), T(add), T(q).t().contiguous().t())
+
+    def test_plain_path_counts_no_launch(self):
+        _, packed, mult, add, _, q8, qs = _inputs(2, 9)
+        cs.reset_launch_counts()
+        cs.bmax_s4(T(packed), T(mult), T(add), T(q8), T(qs))
+        assert cs.launch_counts["bmax_s4"] == 0
+
+
+# ---- on the card: each kernel against its plain version ------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _card_inputs(dev, cap=65536, d=64, nq=5, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e8 = torch.randint(-127, 128, (cap, d), dtype=torch.int8, device=dev, generator=g)
+    ebf = torch.randn(cap, d, device=dev, generator=g).to(torch.bfloat16)
+    p4 = torch.randint(-128, 128, (cap, d // 2), dtype=torch.int8, device=dev, generator=g)
+    mult = torch.rand(cap, device=dev, generator=g) + 0.5
+    add = torch.randn(cap, device=dev, generator=g)
+    add[cap - 200:] = float("-inf")
+    q = torch.randn(nq, d, device=dev, generator=g)
+    q8 = torch.randint(-127, 128, (nq, d), dtype=torch.int8, device=dev, generator=g)
+    qs = torch.rand(nq, device=dev, generator=g) * 0.1
+    return e8, ebf, p4, mult, add, q, q8, qs
+
+
+def _card_match(got, want, rtol, atol):
+    """As ``_assert_match``: ``atol`` is a fraction of the largest |score|."""
+    torch.cuda.synchronize()
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    scale = float(want[fin].abs().max())
+    torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+def test_card_bmax_s4(cuda_device, nq):
+    _, _, p4, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+    before = cs.launch_counts["bmax_s4"]
+    got = cs.bmax_s4(p4, mult, add, q8, qs)
+    assert cs.launch_counts["bmax_s4"] == before + (nq + 31) // 32
+    _card_match(got, cs.bmax_s4_plain(p4, mult, add, q8, qs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+def test_card_scores_matrix_s4(cuda_device, nq):
+    _, _, p4, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+    got = cs.scores_matrix_s4(p4, mult, add, q8, qs)
+    _card_match(got, cs.scores_matrix_s4_plain(p4, mult, add, q8, qs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32])
+def test_card_bmax(cuda_device, nq):
+    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=nq)
+    for emb in (e8, ebf):
+        _card_match(cs.bmax(emb, mult, add, q), cs.bmax_plain(emb, mult, add, q),
+                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32])
+def test_card_scores_matrix(cuda_device, nq):
+    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=nq)
+    for emb in (e8, ebf):
+        _card_match(cs.scores_matrix(emb, mult, add, q),
+                    cs.scores_matrix_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nq,groups", [
+    # (dim, queries, queries per launch over int8 rows, bf16 rows, int4 rows)
+    (2048, 32, (32, 16, 32)),
+    (2048, 40, (32, 16, 32)),
+    (8192, 20, (8, 4, 16)),
+])
+def test_card_wide_dim(cuda_device, d, nq, groups):
+    """Wide dims: the staged queries must fit in shared memory, so past
+    some dim a launch takes fewer than 32 queries."""
+    e8, ebf, p4, mult, add, q, q8, qs = _card_inputs(cuda_device, cap=4096, d=d, nq=nq)
+    g_int8, g_bf16, g_s4 = groups
+    for emb, g in ((e8, g_int8), (ebf, g_bf16)):
+        for name, fn, plain in (("bmax", cs.bmax, cs.bmax_plain),
+                                ("scores_matrix", cs.scores_matrix, cs.scores_matrix_plain)):
+            before = cs.launch_counts[name]
+            got = fn(emb, mult, add, q)
+            assert cs.launch_counts[name] - before == -(-nq // g)
+            _card_match(got, plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
+    for name, fn, plain in (("bmax_s4", cs.bmax_s4, cs.bmax_s4_plain),
+                            ("scores_matrix_s4", cs.scores_matrix_s4,
+                             cs.scores_matrix_s4_plain)):
+        before = cs.launch_counts[name]
+        got = fn(p4, mult, add, q8, qs)
+        assert cs.launch_counts[name] - before == -(-nq // g_s4)
+        _card_match(got, plain(p4, mult, add, q8, qs), rtol=0, atol=0)
