@@ -4,23 +4,34 @@
     python3 chip_smoke.py
 
 Builds the stage-1 kernels from ``dewi_tpu_torch/csrc`` with nvcc (into
-``dewi_tpu_torch/_build/``) and drives the port's main path through its
+``dewi_tpu_torch/_build/``) and drives the port's main paths through their
 public entry points:
 
 1. the card, the versions and the kernel build time;
-2. each CUDA kernel against its plain PyTorch version on the card, at the
-   main path's shape (cap 2^20, D 256, Q 1 and 32), a ragged one
-   (cap 65,536, D 64, Q 5) and a wide one (cap 16,384, D 2048, Q 40, which
-   takes two launches), with its time beside its bound;
+2. each of the eight CUDA kernels against its plain PyTorch version on the
+   card, at the main path's shape (cap 2^20, D 256, Q 1 and 32), a ragged
+   one (cap 65,536, D 64, Q 5) and a wide one (cap 16,384, D 2048, Q 40,
+   which takes two launches), with its time beside its bound; the s8
+   kernels must match bit for bit, and the corpus-major kernels must equal
+   the query-major ones transposed;
 3. the README quick start at its own size (10k docs x 768, cosine):
    scorer fit + score, ``set_dewi_scores``, ``build``, ``search``, a
    save/load round trip and an eta sweep, checked against numpy;
 4. the bench protocol at 1M docs x 256 (cap 2^20), k=10, through
-   ``DewiIndex``: exact f32 (the recall reference), exact bf16, int8, int4
-   and int4 without block-max selection; Q=1 latency, batched ms/query at
-   Q=1000 and recall@10 vs f32 exact over 1000 queries, plus the scorer's
-   fit-and-score rate on the [1M, 7] signal matrix;
-5. one JSON line with every kernel's launches, error and times.
+   ``DewiIndex``: exact f32 (the recall reference), exact bf16, int8, int4,
+   int4 without block-max selection, and int8 with int8 queries, unfused
+   and fused; Q=1 latency, batched ms/query at Q=1000 and recall@10 vs f32
+   exact over 1000 queries, plus the scorer's fit-and-score rate on the
+   [1M, 7] signal matrix; then ``quantized_search`` on the int8-query
+   index's arrays with a 4096-row stream block, the corpus-major route,
+   held equal to the query-major route;
+5. serving: ``SearchServer`` over the int8-query index, 64 client threads
+   in a process of their own (``--serve-clients``, started by this
+   script) sending ``POST /search`` (and one ``/search_batch``), every
+   answer held against a direct ``search_batch``; more passes split the
+   worker's ``search_batch`` time (the interpreter's switch interval cut
+   to 0.5 ms, a repeat, a 1 ms stack sampler);
+6. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -28,12 +39,16 @@ result line.  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -50,13 +65,21 @@ TIER_KERNEL = {             # tier -> the stage-1 kernel its main path runs
     "int8": "bmax",
     "int4": "bmax_s4",
     "int4_unfused": "scores_matrix_s4",
+    "int8_s8_unfused": "scores_matrix_s8",
+    "int8_s8": "bmax_s8",
 }
 REPLACES = {
     "bmax_s4": "dewi_tpu/ops/pallas_search.py:661",
     "scores_matrix_s4": "dewi_tpu/ops/pallas_search.py:470",
     "bmax": "dewi_tpu/ops/pallas_search.py:559",
     "scores_matrix": "dewi_tpu/ops/pallas_search.py:309",
+    "bmax_s8": "dewi_tpu/ops/pallas_search.py:609",
+    "scores_matrix_s8": "dewi_tpu/ops/pallas_search.py:378",
+    "bmax_t": "dewi_tpu/ops/pallas_search.py:740",
+    "bmax_s8_t": "dewi_tpu/ops/pallas_search.py:793",
 }
+CORPUS_MAJOR_BLOCK = 4096   # a stream block that is not a multiple of 16384 rows
+N_CLIENTS = 64
 
 
 def log(*args: object) -> None:
@@ -117,16 +140,41 @@ def kernel_inputs(cap: int, d: int, nq: int, seed: int) -> dict:
 
 def kernel_cases(x: dict) -> dict:
     """kernel name -> (kernel call, plain call, library call or None, rtol,
-    atol fraction of max |ref|, bytes moved, operations, ops peak)."""
+    atol fraction of max |ref|, bytes moved, operations, ops peak).
+
+    Library yardsticks: ``torch.matmul`` of the bf16 operands for the
+    float-query kernels; ``torch._int_mm`` (int8 x int8 -> int32) for the s8
+    kernels, with the queries zero-padded to 32 rows, since it needs more
+    than 16 rows and a multiple of 8 columns.  Neither applies the epilogue."""
     from dewi_tpu_torch.ops import cuda_search as cs
 
     cap, d = x["e8"].shape
     nq = x["q"].shape[0]
     f4 = 4 * cap  # mult + add, f32 each
     qbf, ebf_t = x["q"].to(torch.bfloat16), x["ebf"].T
-    e8bf_t = x["e8"].to(torch.bfloat16).T
+    e8bf = x["e8"].to(torch.bfloat16)
+    e8bf_t = e8bf.T
+    q8_pad = torch.zeros((max(32, -(-nq // 8) * 8), d), dtype=torch.int8, device="cuda")
+    q8_pad[:nq] = x["q8"]
     ops = 2.0 * nq * cap * d
+    s8 = (x["e8"], x["m8"], x["add"], x["q8"], x["qs"])
+    s8_bytes = cap * d + 2 * f4 + nq * d + 4 * nq
     return {
+        "bmax_s8": (lambda: cs.bmax_s8(*s8), lambda: cs.bmax_s8_plain(*s8),
+                    lambda: torch._int_mm(q8_pad, x["e8"].T), 0.0, 0.0,
+                    s8_bytes + 4 * nq * cap // 128, ops, INT8_OPS_PER_S),
+        "scores_matrix_s8": (lambda: cs.scores_matrix_s8(*s8),
+                             lambda: cs.scores_matrix_s8_plain(*s8),
+                             lambda: torch._int_mm(q8_pad, x["e8"].T), 0.0, 0.0,
+                             s8_bytes + 4 * nq * cap, ops, INT8_OPS_PER_S),
+        "bmax_t": (lambda: cs.bmax_t(x["e8"], x["m8"], x["add"], x["q"]),
+                   lambda: cs.bmax_t_plain(x["e8"], x["m8"], x["add"], x["q"]),
+                   lambda: torch.matmul(e8bf, qbf.T), 1e-5, 1e-5,
+                   cap * d + 2 * f4 + 4 * nq * d + 4 * nq * cap // 128, ops,
+                   BF16_OPS_PER_S),
+        "bmax_s8_t": (lambda: cs.bmax_s8_t(*s8), lambda: cs.bmax_s8_t_plain(*s8),
+                      lambda: torch._int_mm(x["e8"], q8_pad.T), 0.0, 0.0,
+                      s8_bytes + 4 * nq * cap // 128, ops, INT8_OPS_PER_S),
         "bmax_s4": (lambda: cs.bmax_s4(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
                     lambda: cs.bmax_s4_plain(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
                     None, 1e-6, 0.0,
@@ -168,8 +216,15 @@ def phase_kernels() -> dict:
     for cap, d, nq in ((1 << 20, DIM, 1), (1 << 20, DIM, 32), (65536, 64, 5),
                        (16384, 2048, 40)):
         x = kernel_inputs(cap, d, nq, seed=cap + nq)
-        for name, (kern, plain, lib, rtol, atol, nbytes, ops, peak) in kernel_cases(x).items():
-            err = compare(kern(), plain(), rtol, atol)
+        cases = kernel_cases(x)
+        for name, (kern, plain, lib, rtol, atol, nbytes, ops, peak) in cases.items():
+            got = kern()
+            err = compare(got, plain(), rtol, atol)
+            if name.endswith("_t"):  # corpus-major = query-major transposed
+                twin = cases[name[:-2]][0]()
+                sync()
+                check(torch.equal(got, twin.T), f"{name} != {name[:-2]} transposed "
+                      f"(cap={cap} D={d} Q={nq})")
             rec = out[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if cap != 1 << 20:
@@ -300,6 +355,253 @@ def recall(ids: torch.Tensor, ref: torch.Tensor) -> float:
     return float(hit.float().mean())
 
 
+def phase_corpus_major(index, queries: torch.Tensor) -> dict:
+    """``quantized_search`` on the int8-query index's arrays with a 4096-row
+    stream block: the JAX gate sends it to the corpus-major kernels
+    (``bmax_s8_t`` with int8 queries, ``bmax_t`` without).  Its results
+    must equal the query-major route's."""
+    from dewi_tpu_torch.ops import cuda_search as cs
+    from dewi_tpu_torch.ops.quantized import quantized_search
+
+    b = index._backend
+    emb, sqn, pay, n = b.store.device_arrays()
+    launches = {}
+    for int8_queries in (True, False):
+        for nq in (1, 32):
+            args = (b._q_emb, b._q_scales, emb, sqn, pay, queries[:nq], n, ETA, EP)
+            kw = dict(k=K, m=80, normalize=True, kernel_stage1=True,
+                      int8_queries=int8_queries, blockmax_select=True, fused_bmax=True)
+            cs.reset_launch_counts()
+            s_t, i_t = quantized_search(*args, kernel_block=CORPUS_MAJOR_BLOCK, **kw)
+            sync()
+            counts = dict(cs.launch_counts)
+            s_q, i_q = quantized_search(*args, **kw)
+            sync()
+            name = "bmax_s8_t" if int8_queries else "bmax_t"
+            check(counts[name] > 0, f"corpus-major route did not launch {name}")
+            check(torch.equal(i_t, i_q) and torch.equal(s_t, s_q),
+                  f"corpus-major route differs from query-major ({name}, Q={nq})")
+            launches[name] = launches.get(name, 0) + counts[name]
+            log(f"corpus-major route {name} Q={nq}: launches {counts[name]}, "
+                f"equal to the query-major route")
+    return launches
+
+
+def post(port: int, path: str, payload: dict) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def serve_clients(port: int, n_clients: int, query_file: str) -> None:
+    """The serving phase's clients, in a process of their own (so that they
+    do not share the server's interpreter lock): ``n_clients`` threads
+    send one ``POST /search`` per query of ``query_file``; prints the
+    answers, each request's latency and the wall time as one JSON line."""
+    qh = np.load(query_file)
+    answers: list = [None] * len(qh)
+    lat: list = [None] * len(qh)
+
+    def client(c: int) -> None:
+        for i in range(c, len(qh), n_clients):
+            t = time.perf_counter()
+            answers[i] = post(port, "/search", {"vector": qh[i].tolist(), "k": K})
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    t0, c0 = time.perf_counter(), os.times()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    c1 = os.times()
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "user_s": c1.user - c0.user,
+                      "system_s": c1.system - c0.system, "lat_ms": lat,
+                      "answers": answers}))
+
+
+class WorkerSearchTimer:
+    """Times each ``search_batch`` that the server's worker thread makes:
+    wall time and the thread's own CPU time (``time.thread_time``), so the
+    ``dispatch`` stage splits into time the worker computes (or spins in a
+    CUDA call) and time it waits (for the interpreter lock).  With
+    ``sample_ms`` a sampler thread also reads the worker's stack that often
+    while it is inside ``search_batch`` and counts where it stands: the
+    innermost frame, and the innermost frame of ``dewi_tpu_torch``."""
+
+    def __init__(self, index, worker: threading.Thread, sample_ms: float = 0.0) -> None:
+        self.index, self.worker = index, worker
+        self.wall_ms: list = []
+        self.cpu_ms: list = []
+        self.inner: collections.Counter = collections.Counter()
+        self.port_frame: collections.Counter = collections.Counter()
+        self._inside = False
+        self._stop = threading.Event()
+        self._sampler = (threading.Thread(target=self._sample, args=(sample_ms / 1e3,),
+                                          daemon=True) if sample_ms else None)
+
+    def __enter__(self) -> "WorkerSearchTimer":
+        search = self.index.search_batch
+
+        def timed(*args, **kw):
+            if threading.current_thread() is not self.worker:
+                return search(*args, **kw)
+            w0, c0 = time.perf_counter(), time.thread_time()
+            self._inside = True
+            try:
+                return search(*args, **kw)
+            finally:
+                self._inside = False
+                self.wall_ms.append((time.perf_counter() - w0) * 1e3)
+                self.cpu_ms.append((time.thread_time() - c0) * 1e3)
+
+        self.index.search_batch = timed  # shadows the method on this instance
+        if self._sampler:
+            self._sampler.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._sampler:
+            self._sampler.join()
+        del self.index.search_batch
+
+    def _sample(self, period_s: float) -> None:
+        while not self._stop.wait(period_s):
+            frame = sys._current_frames().get(self.worker.ident)
+            if not self._inside or frame is None:
+                continue
+            self.inner[f"{Path(frame.f_code.co_filename).name}:{frame.f_lineno} "
+                       f"{frame.f_code.co_name}"] += 1
+            f = frame
+            while f is not None and "dewi_tpu_torch" not in f.f_code.co_filename:
+                f = f.f_back
+            if f is not None:
+                self.port_frame[f"{Path(f.f_code.co_filename).name}:{f.f_lineno} "
+                                f"{f.f_code.co_name}"] += 1
+
+    def summary(self) -> dict:
+        wall, cpu = np.asarray(self.wall_ms), np.asarray(self.cpu_ms)
+        # The thread CPU clock may tick coarsely (10 ms on some hosts), so
+        # only the share summed over all searches is reported.
+        out = {"searches": len(wall),
+               "wall_p50_ms": float(np.percentile(wall, 50)),
+               "wall_p95_ms": float(np.percentile(wall, 95)),
+               "cpu_share_of_wall": float(cpu.sum() / wall.sum())}
+        if self._sampler:
+            n = sum(self.inner.values())
+            out["samples"] = n
+            out["innermost_frames"] = [[k, v / n] for k, v in self.inner.most_common(8)]
+            out["port_frames"] = [[k, v / n] for k, v in self.port_frame.most_common(8)]
+        return out
+
+
+def serve_run(srv, index, qh: np.ndarray, tmp: Path, sample_ms: float = 0.0) -> dict:
+    """One pass of the client process against ``srv``: the answers, client
+    latencies, server stages and the worker's ``search_batch`` timings."""
+    srv.batcher.stage_summary(reset=True)
+    before = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{srv.port}/healthz", timeout=60).read())
+    c0 = os.times()
+    with WorkerSearchTimer(index, srv.batcher._worker, sample_ms) as timer:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-clients",
+             str(srv.port), str(N_CLIENTS), str(tmp / "queries.npy")],
+            capture_output=True, text=True, timeout=600)
+    c1 = os.times()
+    check(proc.returncode == 0, f"serve: client process failed: {proc.stderr[-2000:]}")
+    clients = json.loads(proc.stdout.strip().splitlines()[-1])
+    after = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{srv.port}/healthz", timeout=60).read())
+    queries = after["queries"] - before["queries"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    lat, wall = clients["lat_ms"], clients["wall_s"]
+    return {"answers": clients["answers"], "row": {
+        "requests": len(qh), "clients": N_CLIENTS, "qps": len(qh) / wall,
+        "client_p50_ms": statistics.median(lat),
+        "client_p95_ms": float(np.percentile(lat, 95)),
+        "dispatches": dispatches, "mean_batch": queries / max(dispatches, 1),
+        # CPU seconds per wall second of each process, user and system.  Only
+        # one thread at a time runs Python, so user time near 1 says that
+        # process's interpreter lock, not the card, may set the pace.
+        "server_user_per_wall": (c1.user - c0.user) / wall,
+        "server_system_per_wall": (c1.system - c0.system) / wall,
+        "client_user_per_wall": clients["user_s"] / wall,
+        "client_system_per_wall": clients["system_s"] / wall,
+        "stages": srv.batcher.stage_summary(), "worker_search_batch": timer.summary()}}
+
+
+def phase_serve(index, queries: torch.Tensor) -> None:
+    """``SearchServer`` over the int8-query index: 64 client threads, in a
+    separate process, send one ``POST /search`` per seeded query (k=10),
+    plus one ``/search_batch``; every answer must equal a direct
+    ``search_batch`` of the same query.
+
+    Four passes: the measured one; one with the interpreter's switch
+    interval cut from 5 ms to 0.5 ms; the measured one again, for the
+    spread between two passes of the same setting; one with a 1 ms stack
+    sampler on the worker thread.  They say where the ``dispatch`` stage's
+    host time goes: if the worker waits for the interpreter lock, a
+    shorter interval hands it back sooner."""
+    from dewi_tpu_torch.ops import cuda_search as cs
+    from dewi_tpu_torch.serve import MicroBatcher, SearchServer
+
+    qh = queries.cpu().numpy()
+    launch_threads: collections.Counter = collections.Counter()
+    launch = cs._launch
+
+    def spy(name: str, *args: object) -> None:
+        launch_threads[(name, threading.current_thread().name)] += 1
+        launch(name, *args)
+
+    switch = sys.getswitchinterval()
+    srv = SearchServer(index, port=0)
+    srv.start()
+    runs = {}
+    try:
+        post(srv.port, "/search", {"vector": qh[0].tolist(), "k": K})  # warm-up
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+            np.save(Path(tmp) / "queries.npy", qh)
+            cs.reset_launch_counts()
+            cs._launch = spy
+            runs["measured"] = serve_run(srv, index, qh, Path(tmp))
+            batch = post(srv.port, "/search_batch",
+                         {"queries": [{"vector": v.tolist(), "k": K} for v in qh[:16]]})
+            cs._launch = launch
+            counts = dict(cs.launch_counts)
+            sys.setswitchinterval(5e-4)
+            runs["switch_0.5ms"] = serve_run(srv, index, qh, Path(tmp))
+            sys.setswitchinterval(switch)
+            runs["measured_again"] = serve_run(srv, index, qh, Path(tmp))
+            runs["sampled_1ms"] = serve_run(srv, index, qh, Path(tmp), sample_ms=1.0)
+    finally:
+        sys.setswitchinterval(switch)
+        cs._launch = launch
+        srv.shutdown()
+    s, rows = index.search_batch(queries, k=K)
+    s, rows = s.cpu().numpy(), rows.cpu().numpy()
+    max_diff = 0.0
+    for label, run in runs.items():
+        answers = run["answers"] + (batch["results"] if label == "measured" else [])
+        check(all(a is not None for a in answers), f"serve {label}: a request got no answer")
+        for i, a in enumerate(answers):
+            j = i if i < len(qh) else i - len(qh)
+            check(a["ids"] == [index.doc_ids[r] for r in rows[j]],
+                  f"serve {label}: request {i} ids differ from direct search")
+            max_diff = max(max_diff, float(np.abs(np.asarray(a["scores"]) - s[j]).max()))
+    check(max_diff <= 1e-6, f"serve: scores differ from direct search by {max_diff}")
+    threads = {t for (name, t) in launch_threads if name == "bmax_s8"}
+    check(counts["bmax_s8"] > 0 and threads == {MicroBatcher.WORKER_NAME},
+          f"serve: bmax_s8 launches {counts['bmax_s8']} from threads {threads}")
+    log("serve: " + json.dumps({**runs["measured"]["row"], "bmax_s8_launches": counts["bmax_s8"],
+                                "answers_equal_direct_ids": True,
+                                "scores_max_abs_diff": max_diff}))
+    for label in ("switch_0.5ms", "measured_again", "sampled_1ms"):
+        log(f"serve {label}: " + json.dumps(runs[label]["row"]))
+
+
 def phase_bench() -> dict:
     from dewi_tpu_torch import DewiIndex, DewiScorer
     from dewi_tpu_torch.ops import cuda_search as cs
@@ -328,6 +630,8 @@ def phase_bench() -> dict:
         ("int8", "int8", {}),
         ("int4", "int4", {}),
         ("int4_unfused", "int4", {"blockmax_select": False}),
+        ("int8_s8_unfused", "int8", {"int8_queries": True, "blockmax_select": False}),
+        ("int8_s8", "int8", {"int8_queries": True}),  # last: phases 4b and 5 use it
     ]
     launches = {}
     ref_ids = None
@@ -381,6 +685,9 @@ def phase_bench() -> dict:
             name = TIER_KERNEL[tier]
             check(counts[name] > 0, f"{tier}: kernel {name} was not launched")
             launches[name] = counts[name]
+        if tier == "int8_s8":
+            launches.update(phase_corpus_major(index, queries))
+            phase_serve(index, queries)
         del index
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -395,6 +702,9 @@ def card_line() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--serve-clients"]:  # the serving phase's client process
+        serve_clients(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)

@@ -4,7 +4,8 @@ Same system as ``dewi_tpu`` (which stays the reference): documents get
 DEWI scores from the robust median/MAD scorer and go into a ``DewiIndex``
 that searches with ``(1-eta)*sim + eta*dewi + entropy_pref*mean_entropy``.
 Stage 1 of the search runs in hand-written CUDA kernels
-(``dewi_tpu_torch/csrc``), built with nvcc at first use.
+(``dewi_tpu_torch/csrc``), built with nvcc at first use.  ``serve`` holds
+the micro-batching ``MicroBatcher`` and the HTTP ``SearchServer``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); ``device=None`` raises when there is no CUDA device.
@@ -21,13 +22,15 @@ torch.backends.cudnn.allow_tf32 = False
 from .convert import index_from_numpy_state, stats_from_numpy_state  # noqa: E402
 from .index import DewiIndex, ExactIndex, IndexBackend, QuantizedIndex  # noqa: E402
 from .scorer import DewiScorer, RobustStats, local_weights_from_surprisal  # noqa: E402
+from .serve import MicroBatcher, OverloadedError, SearchServer, retier_index  # noqa: E402
 from .types import Payload, Signals, Weights  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "DewiIndex", "DewiScorer", "ExactIndex", "IndexBackend", "Payload",
-    "QuantizedIndex", "RobustStats", "Signals", "Weights",
-    "index_from_numpy_state", "local_weights_from_surprisal",
-    "stats_from_numpy_state", "__version__",
+    "DewiIndex", "DewiScorer", "ExactIndex", "IndexBackend", "MicroBatcher",
+    "OverloadedError", "Payload", "QuantizedIndex", "RobustStats",
+    "SearchServer", "Signals", "Weights", "index_from_numpy_state",
+    "local_weights_from_surprisal", "retier_index", "stats_from_numpy_state",
+    "__version__",
 ]

@@ -1,35 +1,44 @@
 // Stage-1 search kernels for Hopper (sm_90a).
 //
-// Hand-written CUDA ports of the four Pallas kernels on the search path of
+// Hand-written CUDA ports of the eight Pallas kernels on the search path of
 // dewi_tpu/ops/pallas_search.py:
 //
 //   dewi_bmax_s4          <- pallas_bmax_s4          (:661, _bmax_kernel_s4 :651, _s4_acc :428)
 //   dewi_scores_matrix_s4 <- pallas_scores_matrix_s4 (:470, _scores_kernel_s4 :458)
 //   dewi_bmax             <- pallas_bmax             (:559, _bmax_kernel :535)
 //   dewi_scores_matrix    <- pallas_scores_matrix    (:309, _scores_kernel :296)
+//   dewi_bmax_s8          <- pallas_bmax_s8          (:609, _bmax_kernel_s8 :545)
+//   dewi_scores_matrix_s8 <- pallas_scores_matrix_s8 (:378, _scores_kernel_s8 :362)
+//   dewi_bmax_t           <- pallas_bmax_t           (:740, _bmax_kernel_t :713)
+//   dewi_bmax_s8_t        <- pallas_bmax_s8_t        (:793, _bmax_kernel_s8_t :725)
 //
 // Each computes, for every query q and corpus row r,
 //
-//   adj[q, r] = acc[q, r] * mult[r] + add[r]                  (int8 / bf16 rows)
-//   adj[q, r] = float(acc[q, r]) * (q_scale[q] * mult[r]) + add[r]   (int4 rows)
+//   adj[q, r] = acc[q, r] * mult[r] + add[r]                  (float queries)
+//   adj[q, r] = float(acc[q, r]) * (q_scale[q] * mult[r]) + add[r]   (s8 queries)
 //
 // and writes either the full [Q, cap] matrix (f32 or bf16) or the max of
-// each 128-row sub-block, [Q, cap/128] f32.  The accumulator is
-//   * int8 or bf16 rows: sum_d bf16(q[d]) * row[d] in f32.  Both operands
-//     are bf16-exact, so every product is exact in f32 and only the order
-//     of the sum differs from the TPU kernel;
-//   * nibble-packed int4 rows: the exact int32 sum of s8 query x s4 value,
-//     by __dp4a over unpacked s8 quads.  Byte j of a row holds dim j in its
-//     high nibble (signed) and dim j + D/2 in its low nibble (biased by 8).
+// each 128-row sub-block: [Q, cap/128] f32, or [cap/128, Q] for the
+// corpus-major (_t) entry points, which differ from the query-major ones
+// only in the strides of that store.  The accumulator is
+//   * float queries over int8 or bf16 rows: sum_d bf16(q[d]) * row[d] in
+//     f32.  Both operands are bf16-exact, so every product is exact in f32
+//     and only the order of the sum differs from the TPU kernel;
+//   * s8 queries over int8 rows: the exact int32 sum of s8 x s8, by __dp4a
+//     over the quads of the query and the row as they are stored;
+//   * s8 queries over nibble-packed int4 rows: the exact int32 sum of
+//     s8 x s4, by __dp4a over unpacked s8 quads.  Byte j of a row holds dim
+//     j in its high nibble (signed) and dim j + D/2 in its low nibble
+//     (biased by 8).
 // The epilogue keeps the TPU kernel's association, with the multiply-add
 // fused into one rounding (q_scale * mult is rounded first), as XLA on the
 // CPU contracts the Pallas kernels' epilogue; the plain PyTorch versions in
 // dewi_tpu_torch/ops/cuda_search.py compute the same fused form, so given
 // the same accumulator the results agree bit for bit.
 //
-// Bound on this card: all four stream the corpus once and do little work
-// per byte (2*Q operations per element at Q <= 32), so they are bound by
-// device-memory bytes: the corpus, mult and add read once, the output
+// Bound on this card: all of them stream the corpus once and do little
+// work per byte (2*Q operations per element at Q <= 32), so they are bound
+// by device-memory bytes: the corpus, mult and add read once, the output
 // written once.
 //
 // Design: one CTA of 128 threads per 128-row sub-block, one thread per
@@ -40,17 +49,21 @@
 // read as broadcasts; each thread keeps one accumulator per query in
 // registers.  The sub-block max is a warp-shuffle reduction plus one
 // shared-memory step across the four warps.  The staged queries are s8 for
-// int4 rows, bf16 for int8 rows (they are rounded to bf16 anyway; half the
-// shared-memory reads made this kind faster on an H100) and f32 for bf16
-// rows (converting bf16 queries as well as bf16 rows made that kind
-// slower).  Where QT queries of dim d do not fit in shared memory,
-// dewi_queries_per_launch tells the wrapper how many do, and it launches
-// once per group of that many.  Speed work (wgmma, TMA, persistent CTAs)
-// is left for later.
+// s8 queries, bf16 for float queries over int8 rows (they are rounded to
+// bf16 anyway; half the shared-memory reads made this kind faster on an
+// H100) and f32 for bf16 rows (converting bf16 queries as well as bf16 rows
+// made that kind slower).  Where QT queries of dim d do not fit in shared
+// memory, dewi_queries_per_launch tells the wrapper how many do, and it
+// launches once per group of that many; a corpus-major launch then writes
+// columns q0 .. q0+g of its [cap/128, ldo] output.  Speed work (wgmma, TMA,
+// persistent CTAs) is left for later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -61,7 +74,9 @@ constexpr int kStride = kSlabBytes + 16;   // padded shared-memory row stride
 constexpr int kTileBytes = kSub * kStride;
 constexpr int kMaxSmem = 232448;           // per-block limit on sm_90
 
-enum Kind { kInt8 = 0, kBf16 = 1, kS4 = 2 };
+enum Kind { kInt8 = 0, kBf16 = 1, kS4 = 2, kS8 = 3 };
+
+__host__ __device__ constexpr bool s8_query(int kind) { return kind == kS4 || kind == kS8; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -86,12 +101,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int KIND, bool BMAX, int QT>
 __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
-              const float* __restrict__ qf,       // [nq, d] f32 (int8 / bf16 rows)
-              const int8_t* __restrict__ q8,      // [nq, d] s8 (int4 rows)
-              const float* __restrict__ qscale,   // [nq] (int4 rows)
+              const float* __restrict__ qf,       // [nq, d] f32 (float queries)
+              const int8_t* __restrict__ q8,      // [nq, d] s8 (s8 queries)
+              const float* __restrict__ qscale,   // [nq] (s8 queries)
               const float* __restrict__ mult, const float* __restrict__ add,
               void* __restrict__ out, int out_bf16, int nq, int d,
-              long long cap) {
+              long long cap, long long out_qstride, long long out_bstride) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[QT][kThreads / 32];
   uint8_t* tile = smem;
@@ -101,9 +116,9 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   const long long row0 = static_cast<long long>(blockIdx.x) * kSub;
   const long long row = row0 + tid;
 
-  // Stage the queries, zero-padded to QT rows.  int8/bf16 kinds round the
-  // query to bf16 here, as the TPU kernel casts it before the dot.
-  if constexpr (KIND == kS4) {
+  // Stage the queries, zero-padded to QT rows.  Float queries are rounded
+  // to bf16 here, as the TPU kernel casts them before the dot.
+  if constexpr (s8_query(KIND)) {
     int8_t* qs8 = reinterpret_cast<int8_t*>(qsm);
     for (int i = tid; i < QT * d; i += kThreads) {
       qs8[i] = (i / d) < nq ? q8[i] : static_cast<int8_t>(0);
@@ -171,6 +186,20 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
           acc = __dp4a(static_cast<int>(lq[3]), b.w, acc);
           iacc[qi] = acc;
         }
+      } else if constexpr (KIND == kS8) {
+        // Sixteen s8 dims of the row (byte0..+15) against the same dims of
+        // each query: four __dp4a, exact in int32.
+        const int8_t* qs8 = reinterpret_cast<const int8_t*>(qsm);
+#pragma unroll
+        for (int qi = 0; qi < QT; ++qi) {
+          const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
+          int acc = iacc[qi];
+          acc = __dp4a(static_cast<int>(w[0]), a.x, acc);
+          acc = __dp4a(static_cast<int>(w[1]), a.y, acc);
+          acc = __dp4a(static_cast<int>(w[2]), a.z, acc);
+          acc = __dp4a(static_cast<int>(w[3]), a.w, acc);
+          iacc[qi] = acc;
+        }
       } else {
         constexpr int kElems = KIND == kInt8 ? 16 : 8;
         float x[kElems];
@@ -224,7 +253,7 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
 #pragma unroll
   for (int qi = 0; qi < QT; ++qi) {
     float v;
-    if constexpr (KIND == kS4) {
+    if constexpr (s8_query(KIND)) {
       const float qs = qscale[qi < nq ? qi : 0];
       v = __fmaf_rn(__int2float_rn(iacc[qi]), __fmul_rn(qs, m), a);
     } else {
@@ -251,7 +280,7 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       float v = red[tid][0];
 #pragma unroll
       for (int w = 1; w < kThreads / 32; ++w) v = fmaxf(v, red[tid][w]);
-      reinterpret_cast<float*>(out)[static_cast<long long>(tid) * (cap / kSub) + blockIdx.x] = v;
+      reinterpret_cast<float*>(out)[tid * out_qstride + blockIdx.x * out_bstride] = v;
     }
   }
 }
@@ -269,12 +298,15 @@ struct Args {
   int nq;
   int d;
   long long cap;
+  long long out_qstride;  // block-max store: out[q * out_qstride + b * out_bstride]
+  long long out_bstride;
 };
 
 // Dynamic shared memory of one CTA: the row tile and QT staged queries
-// (s8 for int4 rows, bf16 for int8 rows, f32 for bf16 rows).
+// (s8 for s8 queries, bf16 for float queries over int8 rows, f32 for bf16
+// rows).
 size_t dyn_smem(int kind, int qt, int d) {
-  const int qbytes = kind == kS4 ? 1 : (kind == kInt8 ? 2 : 4);
+  const int qbytes = s8_query(kind) ? 1 : (kind == kInt8 ? 2 : 4);
   return kTileBytes + static_cast<size_t>(qt) * d * qbytes;
 }
 
@@ -282,22 +314,47 @@ bool fits(int kind, int qt, int d) {
   return dyn_smem(kind, qt, d) + sizeof(float) * qt * (kThreads / 32) <= kMaxSmem;
 }
 
+constexpr int kMaxDevices = 64;
+
+// Opts fn in to smem bytes of dynamic shared memory on the calling thread's
+// current device.  The opt-in holds per device and launches come from any
+// thread, so each instantiation keeps the largest size set on each device:
+// cudaFuncSetAttribute runs only when a launch needs more than that.  The
+// size only grows, and is stored after the call succeeds, under the lock,
+// so a launch that reads a size >= its own needs no call.
+template <typename Fn>
+cudaError_t opt_in_smem(Fn fn, size_t smem, std::atomic<int>* set_on, std::mutex& mu) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int want = static_cast<int>(smem);
+  if (dev >= kMaxDevices) {
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+  }
+  if (set_on[dev].load(std::memory_order_acquire) >= want) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mu);
+  if (set_on[dev].load(std::memory_order_relaxed) >= want) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+  if (e == cudaSuccess) set_on[dev].store(want, std::memory_order_release);
+  return e;
+}
+
 template <int KIND, bool BMAX, int QT>
 int launch_qt(const Args& a, cudaStream_t stream) {
+  static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
+  static std::mutex smem_mu;
   if (!fits(KIND, QT, a.d)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = dyn_smem(KIND, QT, a.d);
   auto fn = stage1_kernel<KIND, BMAX, QT>;
-  static size_t smem_opted_in = 48 * 1024;  // per instantiation, grows only
-  if (smem > smem_opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (smem > 48 * 1024) {
+    cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_opted_in = smem;
   }
   const dim3 grid(static_cast<unsigned>(a.cap / kSub));
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.q8, a.qscale,
-      a.mult, a.add, a.out, a.out_bf16, a.nq, a.d, a.cap);
+      a.mult, a.add, a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride,
+      a.out_bstride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,7 +382,8 @@ extern "C" {
 int dewi_scores_matrix(const void* emb, int emb_bf16, const float* q,
                        const float* mult, const float* add, void* out,
                        int out_bf16, int nq, int d, long long cap, void* stream) {
-  Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, out_bf16, nq, d, cap};
+  Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, out_bf16,
+         nq, d, cap, 0, 0};
   return emb_bf16 ? launch<kBf16, false>(a, stream) : launch<kInt8, false>(a, stream);
 }
 
@@ -333,8 +391,46 @@ int dewi_scores_matrix(const void* emb, int emb_bf16, const float* q,
 int dewi_bmax(const void* emb, int emb_bf16, const float* q, const float* mult,
               const float* add, float* out, int nq, int d, long long cap,
               void* stream) {
-  Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d, cap};
+  Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
+         cap, cap / kSub, 1};
   return emb_bf16 ? launch<kBf16, true>(a, stream) : launch<kInt8, true>(a, stream);
+}
+
+// pallas_bmax_t: as dewi_bmax, corpus-major: the maxima of these nq queries
+// go to columns 0..nq-1 of out [cap / 128, ldo] f32 (ldo >= nq).
+int dewi_bmax_t(const void* emb, int emb_bf16, const float* q, const float* mult,
+                const float* add, float* out, int ldo, int nq, int d,
+                long long cap, void* stream) {
+  if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
+         cap, 1, ldo};
+  return emb_bf16 ? launch<kBf16, true>(a, stream) : launch<kInt8, true>(a, stream);
+}
+
+// pallas_scores_matrix_s8: emb [cap, d] int8, q8 [nq, d] int8, qscale [nq]
+// f32 -> out [nq, cap] f32 or bf16 (out_bf16).
+int dewi_scores_matrix_s8(const void* emb, const int8_t* q8, const float* qscale,
+                          const float* mult, const float* add, void* out,
+                          int out_bf16, int nq, int d, long long cap, void* stream) {
+  Args a{emb, d, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
+  return launch<kS8, false>(a, stream);
+}
+
+// pallas_bmax_s8: as dewi_scores_matrix_s8, out [nq, cap / 128] f32.
+int dewi_bmax_s8(const void* emb, const int8_t* q8, const float* qscale,
+                 const float* mult, const float* add, float* out, int nq, int d,
+                 long long cap, void* stream) {
+  Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
+  return launch<kS8, true>(a, stream);
+}
+
+// pallas_bmax_s8_t: as dewi_bmax_s8, corpus-major into out [cap / 128, ldo].
+int dewi_bmax_s8_t(const void* emb, const int8_t* q8, const float* qscale,
+                   const float* mult, const float* add, float* out, int ldo,
+                   int nq, int d, long long cap, void* stream) {
+  if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, 1, ldo};
+  return launch<kS8, true>(a, stream);
 }
 
 // pallas_scores_matrix_s4: packed [cap, d / 2] int8, q8 [nq, d] int8,
@@ -344,7 +440,7 @@ int dewi_scores_matrix_s4(const void* packed, const int8_t* q8,
                           const float* add, void* out, int out_bf16, int nq,
                           int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap};
+  Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
   return launch<kS4, false>(a, stream);
 }
 
@@ -353,13 +449,14 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
                  const float* mult, const float* add, float* out, int nq,
                  int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap};
+  Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
   return launch<kS4, true>(a, stream);
 }
 
 // The most queries one launch takes at dim d (a power of two up to 32):
-// the wrappers launch once per group of this many.  kind: 0 int8 rows,
-// 1 bf16 rows, 2 packed int4 rows.  0 when not even one query fits.
+// the wrappers launch once per group of this many.  kind: 0 int8 rows with
+// float queries, 1 bf16 rows, 2 packed int4 rows, 3 int8 rows with s8
+// queries.  0 when not even one query fits.
 int dewi_queries_per_launch(int kind, int d) {
   for (int qt = 32; qt >= 1; qt >>= 1) {
     if (fits(kind, qt, d)) return qt;

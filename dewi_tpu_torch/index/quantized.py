@@ -1,13 +1,13 @@
 """Quantized index: int8 / int4 corpus scan + f32 refinement.
 
 Counterpart of ``dewi_tpu/index/quantized.py`` with the same routing gates
-(``_pallas_stage1_ok``, ``_fused_bmax_block``) minus the Mosaic probes.
-Two choices differ from the TPU build, neither changing a result: the int4
-corpus is always kept packed (the CUDA kernels unpack in registers), and
-there is no 2x stream block for Q <= 8 (a TPU block-size choice).  The
-int8-query kernels are not ported yet, so ``int8_queries`` on the int8
-tier takes the plain s8 route, as the JAX package does when its s8
-probe fails.
+(``_pallas_stage1_ok``, ``_fused_bmax_block``) minus the Mosaic probes, so
+every tier takes its kernels: ``bmax``/``scores_matrix`` with float
+queries, ``bmax_s8``/``scores_matrix_s8`` with ``int8_queries``,
+``bmax_s4``/``scores_matrix_s4`` on int4.  Two choices differ from the TPU
+build, neither changing a result: the int4 corpus is always kept packed
+(the CUDA kernels unpack in registers), and there is no 2x stream block
+for Q <= 8 (a TPU block-size choice).
 """
 
 from __future__ import annotations
@@ -57,10 +57,6 @@ class QuantizedIndex(BaseIndex):
             "int4_storage": self.int4_storage,
         }
 
-    def _stage1_kernel_ported(self) -> bool:
-        """int8 queries over an int8 corpus need pallas_*_s8, not ported."""
-        return self.int4_storage or not self.int8_queries
-
     def _pallas_stage1_ok(self, n_queries: int) -> bool:
         cap = self.store.capacity
         return (
@@ -68,7 +64,6 @@ class QuantizedIndex(BaseIndex):
             and cap >= SCORES_BLOCK
             and cap % SCORES_BLOCK == 0
             and n_queries <= MAX_QUERIES
-            and self._stage1_kernel_ported()
         )
 
     def _fused_bmax_block(self) -> int:
@@ -78,7 +73,6 @@ class QuantizedIndex(BaseIndex):
         32 queries in 32-query groups)."""
         cap = self.store.capacity
         if not (self.blockmax_select and self.use_pallas
-                and self._stage1_kernel_ported()
                 and cap % BMAX_BLOCK == 0 and cap >= 4 * BMAX_BLOCK):
             return 0
         return BMAX_BLOCK

@@ -48,7 +48,16 @@ _SIGNATURES = {
     "dewi_scores_matrix_s4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
     # packed, q8, qscale, mult, add, out, nq, d, cap, stream
     "dewi_bmax_s4": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
-    # kind (0 int8 rows, 1 bf16 rows, 2 packed int4 rows), d
+    # emb, q8, qscale, mult, add, out, out_bf16, nq, d, cap, stream
+    "dewi_scores_matrix_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # emb, q8, qscale, mult, add, out, nq, d, cap, stream
+    "dewi_bmax_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    # emb, emb_bf16, q, mult, add, out, ldo, nq, d, cap, stream
+    "dewi_bmax_t": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # emb, q8, qscale, mult, add, out, ldo, nq, d, cap, stream
+    "dewi_bmax_s8_t": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # kind (0 int8 rows, 1 bf16 rows, 2 packed int4 rows, 3 int8 rows with
+    # s8 queries), d
     "dewi_queries_per_launch": (_I, _I),
 }
 

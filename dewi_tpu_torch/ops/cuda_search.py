@@ -1,40 +1,49 @@
 """Stage-1 search kernels: CUDA wrappers, their plain versions, launch counts.
 
-Counterpart of ``dewi_tpu/ops/pallas_search.py``.  Four of its Pallas
+Counterpart of ``dewi_tpu/ops/pallas_search.py``.  Eight of its Pallas
 kernels lie on the search path and are ported here as hand-written CUDA
 (``dewi_tpu_torch/csrc/search_kernels.cu``):
 
-=========================  =========================================  ==========================
-wrapper                    replaces (dewi_tpu/ops/pallas_search.py)   called from
-=========================  =========================================  ==========================
-``bmax_s4``                ``pallas_bmax_s4`` :661                    int4 tier, fused route
-``scores_matrix_s4``       ``pallas_scores_matrix_s4`` :470           int4 tier, unfused route
-``bmax``                   ``pallas_bmax`` :559                       int8 tier, fused route
-``scores_matrix``          ``pallas_scores_matrix`` :309              exact bf16 tier; int8 unfused
-=========================  =========================================  ==========================
+======================  ======================================  ===============================  ============
+wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from                      bound, Q=1
+======================  ======================================  ===============================  ============
+``bmax_s4``             ``pallas_bmax_s4`` :661                 int4 tier, fused route           142.6 MB
+``scores_matrix_s4``    ``pallas_scores_matrix_s4`` :470        int4 tier, unfused route         146.8 MB
+``bmax``                ``pallas_bmax`` :559                    int8 tier, fused route           276.8 MB
+``scores_matrix``       ``pallas_scores_matrix`` :309           exact bf16 tier; int8 unfused    549.5 MB
+``bmax_s8``             ``pallas_bmax_s8`` :609                 int8-query tier, fused route     276.8 MB
+``scores_matrix_s8``    ``pallas_scores_matrix_s8`` :378        int8-query tier, unfused route   281.0 MB
+``bmax_t``              ``pallas_bmax_t`` :740                  int8 tier, corpus-major block    276.8 MB
+``bmax_s8_t``           ``pallas_bmax_s8_t`` :793               int8-query tier, same block      276.8 MB
+======================  ======================================  ===============================  ============
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  On a CUDA tensor it launches its kernel on the current
-stream (built at first use, see ``_build.py``), once per group of at most
-32 queries (fewer where the queries of a wide dim do not fit in shared
-memory), and adds one to its entry in ``launch_counts`` per launch; on a
-CPU tensor it returns its plain PyTorch version,
-which the CPU tests hold against the JAX package and ``chip_smoke.py``
-holds the kernel against on the card.  There is no fallback from the
-kernel to the plain version.
+stream of the tensor's device (built at first use, see ``_build.py``),
+once per group of at most 32 queries (fewer where the queries of a wide
+dim do not fit in shared memory), and adds one to its entry in
+``launch_counts`` per launch; on a CPU tensor it returns its plain PyTorch
+version, which the CPU tests hold against the JAX package and
+``chip_smoke.py`` holds the kernel against on the card.  There is no
+fallback from the kernel to the plain version.  The corpus-major
+wrappers (``*_t``) return ``[cap/128, Q]``, the transpose of their
+query-major twins.
 
-Bound on an H100 (3.35 TB/s): all four are memory-bound at Q <= 32.  At
-1M x 256, Q=1 they move 142.6 MB (``bmax_s4``), 146.8 MB
-(``scores_matrix_s4``), 276.8 MB (``bmax``, int8 rows) and 549.5 MB
-(``scores_matrix``, bf16 rows): 42.6, 43.8, 82.6 and 164 us.
+Bound on an H100 (3.35 TB/s): all eight are memory-bound at Q <= 32.  The
+last column is what each moves at 1M x 256 (int8 or packed int4 rows,
+bf16 rows for ``scores_matrix``), Q=1: 42.6, 43.8, 82.6, 164, 82.6, 83.9,
+82.6 and 82.6 us.
 
-torch has no integer matmul on CUDA, so the plain int4 version computes
-the s8 x s4 dot in f32 from the integer values, which is exact
-(|acc| <= 128 * 8 * D < 2^24 for D < 16384).
+torch has no integer matmul on the CPU, so the plain versions compute the
+integer dots from the integer values in floating point: the s8 x s4 dot in
+f32, which is exact (|acc| <= 128 * 8 * D < 2^24 for D < 16384), and the
+s8 x s8 dot in f64, which is exact where f32 is not (127^2 * D passes
+2^24 from D = 1041).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -47,16 +56,19 @@ BMAX_BLOCK = 16384
 BLOCKMAX_SUB = 128
 MAX_QUERIES = 32  # queries per launch: the kernel keeps them all on chip
 # Corpus kinds of dewi_queries_per_launch.
-_KIND_INT8, _KIND_BF16, _KIND_S4 = 0, 1, 2
+_KIND_INT8, _KIND_BF16, _KIND_S4, _KIND_S8 = 0, 1, 2, 3
 
 launch_counts: Dict[str, int] = {
     "bmax_s4": 0, "scores_matrix_s4": 0, "bmax": 0, "scores_matrix": 0,
+    "bmax_s8": 0, "scores_matrix_s8": 0, "bmax_t": 0, "bmax_s8_t": 0,
 }
+_count_lock = threading.Lock()  # launches may come from several threads
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -114,6 +126,21 @@ def _check_s4_query(name: str, emb_s4: torch.Tensor, q_i8: torch.Tensor,
         _require(d % 32 == 0, f"{name}: dim {d} must be a multiple of 32")
 
 
+def _check_s8_query(name: str, emb_i8: torch.Tensor, q_i8: torch.Tensor,
+                    q_scale: torch.Tensor) -> None:
+    _require(emb_i8.dtype == torch.int8,
+             f"{name}: corpus must be int8, got {emb_i8.dtype}")
+    d = emb_i8.shape[1]
+    _require(q_i8.dtype == torch.int8 and q_i8.dim() == 2 and q_i8.shape[1] == d,
+             f"{name}: queries must be int8 [Q, {d}], got "
+             f"{q_i8.dtype} {tuple(q_i8.shape)}")
+    _require(q_scale.dtype == torch.float32
+             and tuple(q_scale.shape) == (q_i8.shape[0],),
+             f"{name}: q_scale must be float32 [{q_i8.shape[0]}]")
+    if emb_i8.device.type == "cuda":
+        _require(d % 16 == 0, f"{name}: dim {d} must be a multiple of 16")
+
+
 def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
     _require(out_dtype in (torch.float32, torch.bfloat16),
              f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -125,13 +152,17 @@ def _library() -> object:
     return load_library()
 
 
-def _launch(name: str, fn_name: str, *args: object) -> None:
+def _launch(name: str, fn_name: str, device: torch.device, *args: object) -> None:
+    """Launch on ``device``: the CUDA runtime's current device is per
+    thread, so a launch from a worker thread or for ``cuda:1`` selects it."""
     lib = _library()
-    rc = getattr(lib, fn_name)(*args)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         msg = lib.dewi_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    launch_counts[name] += 1
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _group(name: str, kind: int, d: int) -> int:
@@ -162,6 +193,12 @@ def _s4_dot(emb_s4: torch.Tensor, q_i8: torch.Tensor) -> torch.Tensor:
     d2 = emb_s4.shape[1]
     q = q_i8.float()
     return q[:, :d2] @ hi.T + q[:, d2:] @ lo.T
+
+
+def s8_dot(emb_i8: torch.Tensor, q_i8: torch.Tensor) -> torch.Tensor:
+    """The s8 x s8 dot as JAX's int32 accumulator cast to f32: f64 products
+    and sums of these integers are exact (|acc| <= 127^2 * D < 2^53)."""
+    return (q_i8.double() @ emb_i8.double().T).float()
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -199,6 +236,29 @@ def bmax_s4_plain(emb_s4: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     return _blockmax(scores_matrix_s4_plain(emb_s4, mult, add, q_i8, q_scale))
 
 
+def scores_matrix_s8_plain(emb_i8: torch.Tensor, mult: torch.Tensor,
+                           add: torch.Tensor, q_i8: torch.Tensor,
+                           q_scale: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    acc = s8_dot(emb_i8, q_i8)
+    return _fma(acc, q_scale[:, None] * mult[None, :], add).to(out_dtype)
+
+
+def bmax_s8_plain(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+                  q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    return _blockmax(scores_matrix_s8_plain(emb_i8, mult, add, q_i8, q_scale))
+
+
+def bmax_t_plain(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+                 queries: torch.Tensor) -> torch.Tensor:
+    return bmax_plain(emb, mult, add, queries).T.contiguous()
+
+
+def bmax_s8_t_plain(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+                    q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    return bmax_s8_plain(emb_i8, mult, add, q_i8, q_scale).T.contiguous()
+
+
 # ---- kernel wrappers ----------------------------------------------------
 
 
@@ -223,7 +283,7 @@ def scores_matrix(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     g = _group(name, kind, emb.shape[1])
     for i in range(0, nq, g):
         q, o = queries[i:i + g], out[i:i + g]
-        _launch(name, "dewi_scores_matrix", emb.data_ptr(),
+        _launch(name, "dewi_scores_matrix", emb.device, emb.data_ptr(),
                 int(emb.dtype == torch.bfloat16), q.data_ptr(), mult.data_ptr(),
                 add.data_ptr(), o.data_ptr(), int(out_dtype == torch.bfloat16),
                 q.shape[0], emb.shape[1], cap, _stream(emb))
@@ -249,7 +309,7 @@ def bmax(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     g = _group(name, kind, emb.shape[1])
     for i in range(0, nq, g):
         q, o = queries[i:i + g], out[i:i + g]
-        _launch(name, "dewi_bmax", emb.data_ptr(), int(emb.dtype == torch.bfloat16),
+        _launch(name, "dewi_bmax", emb.device, emb.data_ptr(), int(emb.dtype == torch.bfloat16),
                 q.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
                 q.shape[0], emb.shape[1], cap, _stream(emb))
     return out
@@ -276,7 +336,7 @@ def scores_matrix_s4(emb_s4: torch.Tensor, mult: torch.Tensor,
     g = _group(name, _KIND_S4, q_i8.shape[1])
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
-        _launch(name, "dewi_scores_matrix_s4", emb_s4.data_ptr(), q.data_ptr(),
+        _launch(name, "dewi_scores_matrix_s4", emb_s4.device, emb_s4.data_ptr(), q.data_ptr(),
                 qs.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
                 int(out_dtype == torch.bfloat16), q.shape[0], q.shape[1], cap,
                 _stream(emb_s4))
@@ -301,9 +361,109 @@ def bmax_s4(emb_s4: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     g = _group(name, _KIND_S4, q_i8.shape[1])
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
-        _launch(name, "dewi_bmax_s4", emb_s4.data_ptr(), q.data_ptr(),
+        _launch(name, "dewi_bmax_s4", emb_s4.device, emb_s4.data_ptr(), q.data_ptr(),
                 qs.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
                 q.shape[0], q.shape[1], cap, _stream(emb_s4))
+    return out
+
+
+def scores_matrix_s8(emb_i8: torch.Tensor, mult: torch.Tensor,
+                     add: torch.Tensor, q_i8: torch.Tensor,
+                     q_scale: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """s8-query stage 1: ``[Q, cap]`` of ``acc * (q_scale * mult) + add``.
+
+    ``acc`` is the exact int32 dot of the s8 query with the int8 row.
+    Replaces ``pallas_scores_matrix_s8`` (dewi_tpu/ops/pallas_search.py:378).
+    Bound: bytes (corpus + mult/add read, ``[Q, cap]`` written).
+    """
+    name = "scores_matrix_s8"
+    _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)
+    _check_s8_query(name, emb_i8, q_i8, q_scale)
+    _check_out_dtype(name, out_dtype)
+    if emb_i8.device.type == "cpu":
+        return scores_matrix_s8_plain(emb_i8, mult, add, q_i8, q_scale, out_dtype)
+    nq, (cap, d) = q_i8.shape[0], emb_i8.shape
+    out = torch.empty((nq, cap), dtype=out_dtype, device=emb_i8.device)
+    g = _group(name, _KIND_S8, d)
+    for i in range(0, nq, g):
+        q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
+        _launch(name, "dewi_scores_matrix_s8", emb_i8.device, emb_i8.data_ptr(),
+                q.data_ptr(), qs.data_ptr(), mult.data_ptr(), add.data_ptr(),
+                o.data_ptr(), int(out_dtype == torch.bfloat16), q.shape[0], d, cap,
+                _stream(emb_i8))
+    return out
+
+
+def bmax_s8(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+            q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    """Fused s8-query stage 1 + 128-row block max: ``[Q, cap/128]`` f32.
+
+    Replaces ``pallas_bmax_s8`` (dewi_tpu/ops/pallas_search.py:609), the
+    stage 1 of the int8 tier with ``int8_queries``.  Bound: bytes (corpus +
+    mult/add; only the maxima are written).
+    """
+    name = "bmax_s8"
+    _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)
+    _check_s8_query(name, emb_i8, q_i8, q_scale)
+    if emb_i8.device.type == "cpu":
+        return bmax_s8_plain(emb_i8, mult, add, q_i8, q_scale)
+    nq, (cap, d) = q_i8.shape[0], emb_i8.shape
+    out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32, device=emb_i8.device)
+    g = _group(name, _KIND_S8, d)
+    for i in range(0, nq, g):
+        q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
+        _launch(name, "dewi_bmax_s8", emb_i8.device, emb_i8.data_ptr(), q.data_ptr(),
+                qs.data_ptr(), mult.data_ptr(), add.data_ptr(), o.data_ptr(),
+                q.shape[0], d, cap, _stream(emb_i8))
+    return out
+
+
+def bmax_s8_t(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+              q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
+    """Corpus-major :func:`bmax_s8`: ``[cap/128, Q]`` f32.
+
+    Replaces ``pallas_bmax_s8_t`` (dewi_tpu/ops/pallas_search.py:793), taken
+    where the stream block is not a multiple of 16384 rows.  Bound: bytes.
+    """
+    name = "bmax_s8_t"
+    _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)
+    _check_s8_query(name, emb_i8, q_i8, q_scale)
+    if emb_i8.device.type == "cpu":
+        return bmax_s8_t_plain(emb_i8, mult, add, q_i8, q_scale)
+    nq, (cap, d) = q_i8.shape[0], emb_i8.shape
+    out = torch.empty((cap // BLOCKMAX_SUB, nq), dtype=torch.float32, device=emb_i8.device)
+    g = _group(name, _KIND_S8, d)
+    for i in range(0, nq, g):  # a group writes columns i .. i+g of out
+        q, qs = q_i8[i:i + g], q_scale[i:i + g]
+        _launch(name, "dewi_bmax_s8_t", emb_i8.device, emb_i8.data_ptr(), q.data_ptr(),
+                qs.data_ptr(), mult.data_ptr(), add.data_ptr(), out[:, i:].data_ptr(),
+                nq, q.shape[0], d, cap, _stream(emb_i8))
+    return out
+
+
+def bmax_t(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
+           queries: torch.Tensor) -> torch.Tensor:
+    """Corpus-major :func:`bmax`: ``[cap/128, Q]`` f32.
+
+    Replaces ``pallas_bmax_t`` (dewi_tpu/ops/pallas_search.py:740), taken
+    where the stream block is not a multiple of 16384 rows.  Bound: bytes.
+    """
+    name = "bmax_t"
+    _check_common(name, emb, mult, add, queries.shape[0], queries)
+    _check_float_query(name, emb, queries)
+    if emb.device.type == "cpu":
+        return bmax_t_plain(emb, mult, add, queries)
+    nq, cap = queries.shape[0], emb.shape[0]
+    out = torch.empty((cap // BLOCKMAX_SUB, nq), dtype=torch.float32, device=emb.device)
+    kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
+    g = _group(name, kind, emb.shape[1])
+    for i in range(0, nq, g):  # a group writes columns i .. i+g of out
+        q = queries[i:i + g]
+        _launch(name, "dewi_bmax_t", emb.device, emb.data_ptr(),
+                int(emb.dtype == torch.bfloat16), q.data_ptr(), mult.data_ptr(),
+                add.data_ptr(), out[:, i:].data_ptr(), nq, q.shape[0], emb.shape[1],
+                cap, _stream(emb))
     return out
 
 
@@ -311,6 +471,8 @@ __all__ = [
     "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES",
     "launch_counts", "reset_launch_counts",
     "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
+    "scores_matrix_s8", "bmax_s8", "bmax_t", "bmax_s8_t",
     "scores_matrix_plain", "bmax_plain", "scores_matrix_s4_plain",
-    "bmax_s4_plain",
+    "bmax_s4_plain", "scores_matrix_s8_plain", "bmax_s8_plain",
+    "bmax_t_plain", "bmax_s8_t_plain", "s8_dot",
 ]

@@ -8,11 +8,12 @@ Counterpart of ``dewi_tpu/ops/quantized.py``:
 * stage 2 gathers the candidates' f32 rows and re-ranks them exactly.
 
 Stage 1 runs in the CUDA kernels of ``cuda_search`` where the JAX package
-runs its Pallas kernels (the same routing gates), else in plain PyTorch
-where it ran XLA.  Two routing differences, neither of which changes a
-result of the TPU route: the Mosaic-only corpus-major (``*_t``) layouts
-are not ported (one query-major kernel serves every block), and the TPU's
-``lax.approx_max_k`` candidate select becomes an exact ``torch.topk``.
+runs its Pallas kernels, through the same routing gates line for line
+(the corpus-major ``*_t`` kernels included, taken where the stream block
+is not a multiple of 16384 rows), else in plain PyTorch where it ran XLA.
+One routing difference, which changes no result of the TPU route: the
+TPU's ``lax.approx_max_k`` candidate select becomes an exact
+``torch.topk``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from . import cuda_search
 from .cuda_search import BLOCKMAX_SUB
-from .similarity import NEG_INF, Scalar, f32_scalar, folded_dot, l2_normalize
+from .similarity import NEG_INF, Scalar, f32_scalar, folded_dot, l2_normalize, s8_folded_dot
 
 # Above this query count the blockmax refine gathers the winning blocks'
 # stage-1 SCORES, takes top-m within them and row-gathers only m docs,
@@ -107,12 +108,16 @@ def quantized_search(
     the CUDA kernels (the JAX ``pallas_stage1``); ``blockmax_select`` picks
     the top-s 128-doc blocks by stage-1 max with a margin of k+2 blocks
     (2(k+2) on the int4 grid); ``fused_bmax`` takes the block maxima
-    straight from the fused ``bmax``/``bmax_s4`` kernel so no ``[Q, cap]``
+    straight from the fused ``bmax``/``bmax_s8``/``bmax_s4`` kernel so no ``[Q, cap]``
     matrix is written, and runs batches above 32 queries in 32-query
     groups.  ``int4_packed`` reads ``emb_i8`` as the nibble-packed corpus
     (the index keeps int4 packed, so the JAX ``int4_values`` layout has no
-    counterpart here).  The int8-query kernels (``pallas_*_s8``) are not ported yet:
-    ``int8_queries`` on an int8 corpus runs stage 1 in plain PyTorch.
+    counterpart here).  ``int8_queries`` quantizes the queries to s8 and
+    takes the s8 kernels (``bmax_s8``, ``scores_matrix_s8``); without a
+    kernel its exact integer dot runs in plain PyTorch.  A fused
+    ``kernel_block`` that is not a multiple of 16384 rows (and not the
+    whole corpus) takes the corpus-major kernels (``bmax_t``,
+    ``bmax_s8_t``), as the JAX package does.
     """
     device = emb_i8.device
     int4_grid = int4_packed  # the wider margins follow the values, not the layout
@@ -138,24 +143,26 @@ def quantized_search(
     blockmax_ok = (blockmax_select and cap % BLOCKMAX_SUB == 0
                    and cap >= 4 * BLOCKMAX_SUB)
     use_fused = False
+    bmax_block = 0
     if fused_bmax and blockmax_ok and kernel_stage1:
         bmax_block = kernel_block or cuda_search.BMAX_BLOCK
         use_fused = (cap % bmax_block == 0 and bmax_block % BLOCKMAX_SUB == 0
                      and (bmax_block // BLOCKMAX_SUB) % 8 == 0)
+    # The JAX package's layout gate: a stream block that is not a multiple
+    # of 128 sub-blocks (and not the whole corpus) writes its maxima
+    # corpus-major.
+    t_layout = (bmax_block // BLOCKMAX_SUB) % BLOCKMAX_SUB != 0 and bmax_block != cap
 
     if int4_packed:
-        # The int4 kernels take int8 queries; any other configuration
-        # unpacks the nibbles and rides the int8 paths below.
-        if not int8_queries:
+        # The int4 kernels take int8 queries and are query-major only; any
+        # other configuration unpacks the nibbles and rides the int8 paths
+        # below (a corpus-major fused block then runs unfused, as in JAX).
+        s4_t_layout = use_fused and t_layout
+        if not int8_queries or s4_t_layout:
             use_fused = False
-        if not (kernel_stage1 and int8_queries):
+        if not (kernel_stage1 and int8_queries) or s4_t_layout:
             emb_i8 = unpack_int4(emb_i8)
             int4_packed = False
-    if kernel_stage1 and int8_queries and not int4_packed:
-        raise NotImplementedError(
-            "int8-query stage-1 kernels (pallas_bmax_s8, "
-            "pallas_scores_matrix_s8) are not ported yet: ROADMAP queue 2"
-        )
 
     if use_fused and nq > BLOCKMAX_REFINE_MAX_Q:
         # Chunk into 32-query groups, the last padded with q[0], and run
@@ -193,18 +200,26 @@ def quantized_search(
         if int4_packed:
             q_i8, q_scale = quantize_rows(q)
             bmax = cuda_search.bmax_s4(emb_i8, mult, add, q_i8, q_scale)
+        elif int8_queries:
+            q_i8, q_scale = quantize_rows(q)
+            if t_layout:
+                bmax = cuda_search.bmax_s8_t(emb_i8, mult, add, q_i8, q_scale).T
+            else:
+                bmax = cuda_search.bmax_s8(emb_i8, mult, add, q_i8, q_scale)
+        elif t_layout:
+            bmax = cuda_search.bmax_t(emb_i8, mult, add, q).T
         else:
             bmax = cuda_search.bmax(emb_i8, mult, add, q)
-    elif kernel_stage1 and int4_packed:
+    elif kernel_stage1 and int8_queries:
         q_i8, q_scale = quantize_rows(q)
-        adj1 = cuda_search.scores_matrix_s4(emb_i8, mult, add, q_i8, q_scale,
-                                            out_dtype=out_dtype)
+        kernel = cuda_search.scores_matrix_s4 if int4_packed else cuda_search.scores_matrix_s8
+        adj1 = kernel(emb_i8, mult, add, q_i8, q_scale, out_dtype=out_dtype)
     elif kernel_stage1:
         adj1 = cuda_search.scores_matrix(emb_i8, mult, add, q, out_dtype=out_dtype)
     elif int8_queries:
-        # s8 x s8 dot, exact in f32 from the integer values.
+        # The s8 x s8 dot, exact as JAX's int32 accumulator.
         q_i8, q_scale = quantize_rows(q)
-        adj1 = folded_dot(q_i8.float(), emb_i8, mult, add, out_dtype, q_scale=q_scale)
+        adj1 = s8_folded_dot(q_i8, emb_i8, q_scale, mult, add, out_dtype)
     else:
         adj1 = folded_dot(q.to(torch.bfloat16).float(), emb_i8, mult, add, out_dtype)
 

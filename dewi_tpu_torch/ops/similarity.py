@@ -54,26 +54,57 @@ def rerank_scores(sim: torch.Tensor, payloads: torch.Tensor, eta: Scalar,
 
 
 def folded_dot(q: torch.Tensor, rows: torch.Tensor, mult: torch.Tensor,
-               add: torch.Tensor, out_dtype: torch.dtype = torch.float32,
-               q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               add: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``(q @ rows^T) * mult + add`` in full f32 -> ``[Q, cap]`` of ``out_dtype``.
 
-    With ``q_scale`` [Q] the multiplier is ``q_scale[:, None] * mult``.  The
-    epilogue runs in place on the product; a store that is not f32 (bf16,
-    int8) is converted ``ROW_CHUNK`` rows at a time, so no f32 copy of the
-    whole store is made.
+    The epilogue runs in place on the product; a store that is not f32
+    (bf16, int8) is converted ``ROW_CHUNK`` rows at a time, so no f32 copy
+    of the whole store is made.
     """
-    def mult_of(r0: int, r1: int) -> torch.Tensor:
-        return mult[r0:r1] if q_scale is None else q_scale[:, None] * mult[None, r0:r1]
-
     nq, cap = q.shape[0], rows.shape[0]
     if rows.dtype == torch.float32:
-        return (q @ rows.T).mul_(mult_of(0, cap)).add_(add).to(out_dtype)
+        return (q @ rows.T).mul_(mult).add_(add).to(out_dtype)
     out = torch.empty((nq, cap), dtype=out_dtype, device=q.device)
     for r0 in range(0, cap, ROW_CHUNK):
         r1 = min(r0 + ROW_CHUNK, cap)
-        acc = (q @ rows[r0:r1].to(torch.float32).T).mul_(mult_of(r0, r1))
+        acc = (q @ rows[r0:r1].to(torch.float32).T).mul_(mult[r0:r1])
         torch.add(acc, add[r0:r1], out=out[:, r0:r1])
+    return out
+
+
+def s8_folded_dot(q_i8: torch.Tensor, rows_i8: torch.Tensor, q_scale: torch.Tensor,
+                  mult: torch.Tensor, add: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``float(q_i8 @ rows_i8^T) * (q_scale * mult) + add`` -> ``[Q, cap]``.
+
+    The s8 x s8 dot is exact, as the JAX package's int32 dot (an f32 sum is
+    exact only while 127^2 * D < 2^24), and the epilogue rounds once
+    (``addcmul``), as XLA contracts it.  On the card the dot is
+    ``torch._int_mm`` (int32), whose shape rules want more than 16 queries
+    and dims and rows in multiples of 8: the queries, and where needed the
+    dims and the last chunk's rows, are zero-padded, which leaves the sums
+    as they are.  On the CPU it is the f64 dot, exact for these integers.
+    Rows go ``ROW_CHUNK`` at a time.
+    """
+    nq, d = q_i8.shape
+    cap = rows_i8.shape[0]
+    out = torch.empty((nq, cap), dtype=out_dtype, device=q_i8.device)
+    if q_i8.is_cuda:
+        d8 = -(-d // 8) * 8
+        q_pad = torch.zeros((-(-max(nq, 32) // 8) * 8, d8), dtype=torch.int8,
+                            device=q_i8.device)
+        q_pad[:nq, :d] = q_i8
+    for r0 in range(0, cap, ROW_CHUNK):
+        r1 = min(r0 + ROW_CHUNK, cap)
+        if q_i8.is_cuda:
+            chunk = rows_i8[r0:r1]
+            n8 = -(-(r1 - r0) // 8) * 8
+            if (n8, d8) != tuple(chunk.shape):
+                chunk = torch.nn.functional.pad(chunk, (0, d8 - d, 0, n8 - (r1 - r0)))
+            acc = torch._int_mm(q_pad, chunk.T)[:nq, :r1 - r0].float()
+        else:
+            acc = cuda_search.s8_dot(rows_i8[r0:r1], q_i8)
+        out[:, r0:r1] = torch.addcmul(add[r0:r1], acc, q_scale[:, None] * mult[None, r0:r1])
     return out
 
 
@@ -187,5 +218,5 @@ def pairwise_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return l2_normalize(a) @ l2_normalize(b).T
 
 
-__all__ = ["l2_normalize", "rerank_scores", "fused_search", "folded_dot",
+__all__ = ["l2_normalize", "rerank_scores", "fused_search", "folded_dot", "s8_folded_dot",
            "topk_merge", "pairwise_cosine", "f32_scalar"]

@@ -92,6 +92,9 @@ def test_padding_rows_never_returned():
     ("int4", {"blockmax_select": False}),
     ("exact", {"space": "l2"}),
     ("int8", {"space": "l2"}),
+    ("int8", {"int8_queries": True}),
+    ("int8", {"int8_queries": True, "blockmax_select": False}),
+    ("int8", {"int8_queries": True, "space": "l2"}),
 ])
 def test_index_tiers_match_jax(corpus, backend, kw):
     port, ref = _pair(corpus, backend, **kw)
@@ -106,18 +109,37 @@ def test_index_routes_to_fused_kernels(corpus, monkeypatch):
     int4 with blockmax off takes the scores kernel (counted by spying on
     the wrappers, since plain CPU calls count no launch)."""
     calls = []
-    for name in ("bmax", "bmax_s4", "scores_matrix", "scores_matrix_s4"):
+    for name in ("bmax", "bmax_s4", "scores_matrix", "scores_matrix_s4", "bmax_s8",
+                 "scores_matrix_s8", "bmax_t", "bmax_s8_t"):
         fn = getattr(cuda_search, name)
         monkeypatch.setattr(cuda_search, name,
                             lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
     q = corpus[3]
     for backend, kw, want in [("int8", {}, "bmax"), ("int4", {}, "bmax_s4"),
-                              ("int4", {"blockmax_select": False}, "scores_matrix_s4")]:
+                              ("int4", {"blockmax_select": False}, "scores_matrix_s4"),
+                              ("int8", {"int8_queries": True}, "bmax_s8"),
+                              ("int8", {"int8_queries": True, "blockmax_select": False},
+                               "scores_matrix_s8")]:
         port = DewiIndex(dim=DIM, backend=backend, device="cpu", **kw)
         port.add_batch(corpus[0], corpus[1], corpus[2])
         calls.clear()
         port.search_batch(q, k=10)
         assert calls == [want]
+
+
+def test_int8_query_tier_in_query_groups(corpus, monkeypatch):
+    """Above 32 queries the int8-query tier runs ``bmax_s8`` once per
+    32-query group (the last one padded) and still returns JAX's answers."""
+    port, ref = _pair(corpus, "int8", int8_queries=True)
+    calls = []
+    fn = cuda_search.bmax_s8
+    monkeypatch.setattr(cuda_search, "bmax_s8",
+                        lambda *a, **k: calls.append(a[3].shape[0]) or fn(*a, **k))
+    q = np.random.default_rng(5).normal(size=(40, DIM)).astype(np.float32)
+    s, i = port.search_batch(q, k=10, eta=ETA, entropy_pref=EP)
+    assert calls == [32, 32]
+    s_ref, i_ref = ref.search_batch(q, k=10, eta=ETA, entropy_pref=EP)
+    assert_same_topk(s, i, s_ref, i_ref)
 
 
 def test_exact_bf16_matches_jax_kernel_route(corpus):

@@ -3,11 +3,12 @@
 Each plain version in ``dewi_tpu_torch/ops/cuda_search.py`` (what a
 wrapper computes for a CPU tensor) is held against its Pallas function
 run in interpret mode, on the same seeded numpy inputs, with padding rows
-masked through ``add = -inf``.  Tolerances: int4 kernels rtol 1e-6 (the
-integer accumulator is exact, the f32 epilogue is the same association);
-bf16-dot kernels rtol 1e-5 and atol 1e-5 of the largest |score| (only the
-order of the f32 sum differs, and its rounding scales with the terms).
-The quantizers must match bit for bit.
+masked through ``add = -inf``.  Tolerances: int4 kernels rtol 1e-6 and s8
+kernels bit for bit (the integer accumulator is exact, the f32 epilogue is
+the same fused association); bf16-dot kernels, the corpus-major ``bmax_t``
+included, rtol 1e-5 and atol 1e-5 of the largest |score| (only the order
+of the f32 sum differs, and its rounding scales with the terms).  The
+quantizers must match bit for bit.
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
 and skip without a card.  They import no JAX, so on the card they run
@@ -132,6 +133,56 @@ class TestPlainVsPallas:
         _assert_match(port, ref, rtol=2 ** -7, atol=1e-5)
 
 
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    def test_bmax_s8(self, jx, nq):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 30)
+        ref = ps.pallas_bmax_s8(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                jnp.asarray(q8), jnp.asarray(qs), block=1024,
+                                interpret=True)
+        port = cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs))
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    @pytest.mark.parametrize("bf16_out", [False, True])
+    def test_scores_matrix_s8(self, jx, nq, bf16_out):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 31)
+        ref = ps.pallas_scores_matrix_s8(
+            jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q8),
+            jnp.asarray(qs), block=1024, interpret=True,
+            out_dtype=jnp.bfloat16 if bf16_out else jnp.float32)
+        port = cs.scores_matrix_s8(T(emb), T(mult), T(add), T(q8), T(qs),
+                                   out_dtype=torch.bfloat16 if bf16_out else torch.float32)
+        assert port.dtype == (torch.bfloat16 if bf16_out else torch.float32)
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    @pytest.mark.parametrize("bf16_corpus", [False, True])
+    def test_bmax_t(self, jx, nq, bf16_corpus):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 32, bf16_corpus)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_bmax_t(je, jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q),
+                               block=1024, interpret=True)
+        port = cs.bmax_t(te, T(mult), T(add), T(q))
+        assert tuple(port.shape) == (CAP // 128, nq)
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("nq", [1, 5, 32])
+    def test_bmax_s8_t(self, jx, nq):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 33)
+        ref = ps.pallas_bmax_s8_t(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                  jnp.asarray(q8), jnp.asarray(qs), block=1024,
+                                  interpret=True)
+        port = cs.bmax_s8_t(T(emb), T(mult), T(add), T(q8), T(qs))
+        assert tuple(port.shape) == (CAP // 128, nq)
+        _assert_match(port, ref, rtol=0, atol=0)
+        # the corpus-major maxima are the query-major ones transposed
+        assert torch.equal(port, cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs)).T)
+
+
 class TestQuantizersBitExact:
     @pytest.mark.parametrize("shape", [(64, 32), (257, 64), (16, 256)])
     def test_quantize_rows(self, jx, shape):
@@ -180,11 +231,25 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="contiguous"):
             cs.scores_matrix(e8, T(mult), T(add), T(q).t().contiguous().t())
 
+    def test_rejects_bad_s8_inputs(self):
+        emb, packed, mult, add, q, q8, qs = _inputs(3, 10)
+        with pytest.raises(ValueError, match="corpus must be int8"):
+            cs.bmax_s8(T(emb).float(), T(mult), T(add), T(q8), T(qs))
+        with pytest.raises(ValueError, match="queries must be int8"):
+            cs.scores_matrix_s8(T(emb), T(mult), T(add), T(q), T(qs))
+        with pytest.raises(ValueError, match="q_scale"):
+            cs.bmax_s8_t(T(emb), T(mult), T(add), T(q8), T(qs[:2].copy()))
+        with pytest.raises(ValueError, match="queries must be float32"):
+            cs.bmax_t(T(emb), T(mult), T(add), T(q8))
+
     def test_plain_path_counts_no_launch(self):
-        _, packed, mult, add, _, q8, qs = _inputs(2, 9)
+        emb, packed, mult, add, q, q8, qs = _inputs(2, 9)
         cs.reset_launch_counts()
         cs.bmax_s4(T(packed), T(mult), T(add), T(q8), T(qs))
+        cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs))
+        cs.bmax_t(T(emb), T(mult), T(add), T(q))
         assert cs.launch_counts["bmax_s4"] == 0
+        assert sum(cs.launch_counts.values()) == 0
 
 
 # ---- on the card: each kernel against its plain version ------------------
@@ -283,3 +348,70 @@ def test_card_wide_dim(cuda_device, d, nq, groups):
         got = fn(p4, mult, add, q8, qs)
         assert cs.launch_counts[name] - before == -(-nq // g_s4)
         _card_match(got, plain(p4, mult, add, q8, qs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+def test_card_bmax_s8(cuda_device, nq):
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+    before = cs.launch_counts["bmax_s8"]
+    got = cs.bmax_s8(e8, mult, add, q8, qs)
+    assert cs.launch_counts["bmax_s8"] == before + (nq + 31) // 32
+    _card_match(got, cs.bmax_s8_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_card_scores_matrix_s8(cuda_device, nq, out_dtype):
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+    got = cs.scores_matrix_s8(e8, mult, add, q8, qs, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    _card_match(got, cs.scores_matrix_s8_plain(e8, mult, add, q8, qs, out_dtype),
+                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+def test_card_corpus_major(cuda_device, nq):
+    """The ``*_t`` kernels: their plain versions, and bit for bit the
+    query-major kernels transposed (a group of 32 writes its columns)."""
+    e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, nq=nq)
+    got = cs.bmax_s8_t(e8, mult, add, q8, qs)
+    assert tuple(got.shape) == (e8.shape[0] // 128, nq)
+    _card_match(got, cs.bmax_s8_t_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
+    assert torch.equal(got, cs.bmax_s8(e8, mult, add, q8, qs).T)
+    for emb in (e8, ebf):
+        got = cs.bmax_t(emb, mult, add, q)
+        _card_match(got, cs.bmax_t_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, cs.bmax(emb, mult, add, q).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nq,group", [(2048, 40, 32), (8192, 20, 16)])
+def test_card_wide_dim_s8(cuda_device, d, nq, group):
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, cap=4096, d=d, nq=nq)
+    for name, fn, plain in (("bmax_s8", cs.bmax_s8, cs.bmax_s8_plain),
+                            ("scores_matrix_s8", cs.scores_matrix_s8,
+                             cs.scores_matrix_s8_plain),
+                            ("bmax_s8_t", cs.bmax_s8_t, cs.bmax_s8_t_plain)):
+        before = cs.launch_counts[name]
+        got = fn(e8, mult, add, q8, qs)
+        assert cs.launch_counts[name] - before == -(-nq // group)
+        _card_match(got, plain(e8, mult, add, q8, qs), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d,rows", [(5, 64, 32768), (40, 64, 32768), (40, 2048, 32768),
+                                       (3, 100, 32765)])
+def test_card_plain_s8_route(cuda_device, nq, d, rows):
+    """The s8 stage 1 without a kernel (``s8_folded_dot``): ``torch._int_mm``
+    on zero-padded queries (and dims and rows, where they are not multiples
+    of 8), then ``addcmul``; bit for bit the exact plain version of
+    ``scores_matrix_s8``."""
+    from dewi_tpu_torch.ops.similarity import s8_folded_dot
+
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, cap=32768, d=d, nq=nq)
+    e8, mult, add = e8[:rows], mult[:rows], add[:rows]
+    got = s8_folded_dot(q8, e8, qs, mult, add)
+    _card_match(got, cs.scores_matrix_s8_plain(e8, mult, add, q8, qs), rtol=0, atol=0)

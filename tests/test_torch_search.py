@@ -3,9 +3,12 @@
 ``quantized_search`` is held against the JAX function on its TPU route
 (Pallas stage 1 in interpret mode, ``approx_select=False``): the fused
 block-max route and the unfused scores-kernel route, int8 and packed int4,
-cosine and L2, Q in {3, 40} (40 exercises the 32-query chunking and the
-score-gather refine).  ``fused_search`` is held against JAX's two-pass
-block max, with and without the stage-1 kernel.
+float and s8 queries, query-major and corpus-major stream blocks, cosine
+and L2, Q in {3, 40} (40 exercises the 32-query chunking and the
+score-gather refine).  The plain s8 stage 1 is held bit for bit against
+the JAX package's int32 dot at D = 2048, where an f32 sum is no longer
+exact.  ``fused_search`` is held against JAX's two-pass block max, with
+and without the stage-1 kernel.
 
 Scores: allclose (rtol 1e-5, atol 1e-6; stage 2 is exact f32 on both
 sides).  Ids: compared only where scores differ (tie order may differ).
@@ -121,11 +124,92 @@ def test_quantized_search_plain_routes(bf16_scores):
         assert_same_topk(s, i, s_ref, i_ref)
 
 
-def test_quantized_search_s8_kernels_not_ported():
+def test_quantized_search_s8_kernel_route_matches_jax():
+    """The kernel route with int8 queries runs the s8 stage-1 kernels and
+    matches JAX's Pallas s8 route."""
     emb, pay, sqn = _corpus(17)
-    _, targs = _quantized_args(emb, pay, sqn, np.ones((2, D), np.float32), int4=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantized_search(*targs, k=10, m=80, kernel_stage1=True, int8_queries=True)
+    q = np.random.default_rng(18).normal(size=(2, D)).astype(np.float32)
+    jargs, targs = _quantized_args(emb, pay, sqn, q, int4=False)
+    s_ref, i_ref = jq.quantized_search(
+        *jargs, k=10, m=80, approx_select=False, pallas_stage1=True, pallas_block=CAP,
+        interpret=True, int8_queries=True)
+    s, i = tq.quantized_search(*targs, k=10, m=80, kernel_stage1=True, int8_queries=True)
+    assert_same_topk(s, i, s_ref, i_ref)
+
+
+@pytest.mark.parametrize("nq", [3, 40])
+@pytest.mark.parametrize("block", [512, 1024, CAP])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("int4,int8_queries", [(False, False), (False, True), (True, True)])
+def test_quantized_search_block_routes(nq, block, fused, int4, int8_queries):
+    """Every stream block of the JAX gates on a 4096 cap: 512 is too small
+    to fuse (it runs the scores kernel), 1024 fuses corpus-major
+    (``bmax_t``/``bmax_s8_t``; packed int4 unpacks and runs unfused), 4096
+    is the whole corpus and fuses query-major."""
+    emb, pay, sqn = _corpus(19)
+    q = np.random.default_rng(20).normal(size=(nq, D)).astype(np.float32)
+    jargs, targs = _quantized_args(emb, pay, sqn, q, int4)
+    m = 320 if int4 else 80
+    s_ref, i_ref = jq.quantized_search(
+        *jargs, k=10, m=m, approx_select=False, pallas_stage1=True, pallas_block=block,
+        interpret=True, int8_queries=int8_queries, blockmax_select=True,
+        fused_bmax=fused, int4_packed=int4)
+    s, i = tq.quantized_search(
+        *targs, k=10, m=m, kernel_stage1=True, kernel_block=block,
+        int8_queries=int8_queries, blockmax_select=True, fused_bmax=fused,
+        int4_packed=int4)
+    assert_same_topk(s, i, s_ref, i_ref)
+
+
+def _saturated_s8(nq, cap=2048, d=2048, seed=27):
+    """Rows of 127/125 and queries of 127/123: the s8 dot passes 2^24."""
+    rng = np.random.default_rng(seed)
+    e8 = np.where(rng.random((cap, d)) < 0.5, 127, 125).astype(np.int8)
+    q8 = np.where(rng.random((nq, d)) < 0.5, 127, 123).astype(np.int8)
+    qs = rng.uniform(0.001, 0.01, nq).astype(np.float32)
+    mult = rng.uniform(0.5, 1.5, cap).astype(np.float32)
+    add = rng.normal(size=cap).astype(np.float32)
+    return e8, q8, qs, mult, add
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+def test_plain_s8_stage1_is_exact_at_wide_dim(nq):
+    """The plain s8 stage 1 equals, bit for bit, the JAX package's XLA s8
+    stage 1 (dewi_tpu/ops/quantized.py:415-421: int32 dot, cast to f32,
+    ``acc * (q_scale * mult) + add``) where an f32 sum of the products
+    rounds (127^2 * 2048 > 2^24)."""
+    import jax
+
+    e8, q8, qs, mult, add = _saturated_s8(nq)
+    acc = jax.lax.dot_general(jnp.asarray(q8), jnp.asarray(e8),
+                              dimension_numbers=(((1,), (1,)), ((), ())),
+                              preferred_element_type=jnp.int32).astype(jnp.float32)
+    ref = np.asarray(jax.jit(lambda a, s, m, b: a * (s[:, None] * m[None, :]) + b[None, :])(
+        acc, jnp.asarray(qs), jnp.asarray(mult), jnp.asarray(add)))
+    T = torch.from_numpy
+    got = tsim.s8_folded_dot(T(q8), T(e8), T(qs), T(mult), T(add))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_plain_s8_route_matches_jax_at_wide_dim():
+    """``quantized_search`` with int8 queries on the plain route (no
+    kernel, flat select, k = m) over saturated rows at D = 2048."""
+    e8, _, _, _, _ = _saturated_s8(1)
+    emb = e8.astype(np.float32)
+    pay = np.zeros((e8.shape[0], 8), np.float32)
+    sqn = np.sum(emb * emb, axis=1).astype(np.float32)
+    q = np.where(np.random.default_rng(28).random((2, e8.shape[1])) < 0.5,
+                 127.0, 123.0).astype(np.float32)
+    scales = np.ones(e8.shape[0], np.float32)
+    n = e8.shape[0]
+    s_ref, i_ref = jq.quantized_search(
+        jnp.asarray(e8), jnp.asarray(scales), jnp.asarray(emb), jnp.asarray(sqn),
+        jnp.asarray(pay), jnp.asarray(q), jnp.int32(n), jnp.float32(0.0),
+        jnp.float32(0.0), k=10, m=10, approx_select=False, int8_queries=True)
+    T = torch.from_numpy
+    s, i = tq.quantized_search(T(e8), T(scales), T(emb), T(sqn), T(pay), T(q), n, 0.0,
+                               0.0, k=10, m=10, int8_queries=True)
+    assert_same_topk(s, i, s_ref, i_ref)
 
 
 @pytest.mark.parametrize("dtype,space,route", [
