@@ -5,7 +5,9 @@ very same corpus, quantized codes and payloads as the JAX index it came
 from: the ``DocStore.device_arrays()`` tuple (normalized, cast rows, their
 squared norms, payloads, ``n_valid``) and, for the quantized tiers,
 ``QuantizedIndex._q_emb``/``_q_scales``, all as numpy.
-``stats_from_numpy_state`` does the same for fitted ``RobustStats``.
+``ivf_index_from_numpy_state`` also takes the JAX ``IVFIndex._dev`` tuple,
+so the port searches the very same buckets.  ``stats_from_numpy_state``
+does the same for fitted ``RobustStats``.
 """
 
 from __future__ import annotations
@@ -75,6 +77,44 @@ def index_from_numpy_state(
     return index
 
 
+def ivf_index_from_numpy_state(
+    doc_ids: Sequence[str],
+    device_arrays: Sequence[Any],
+    ivf_state: Sequence[Any],
+    *,
+    space: str = "cosine",
+    device: DeviceLike = None,
+    **index_kwargs: Any,
+) -> DewiIndex:
+    """Build a port IVF index from the store's arrays and the ``_dev`` tuple.
+
+    ``ivf_state`` is the JAX ``IVFIndex._dev`` as numpy: centroids, the five
+    bucket arrays (``b_emb``, ``b_pay``, ``b_valid``, ``b_docidx``,
+    ``b_sqn``), the four overflow arrays (``o_emb``, ``o_pay``,
+    ``o_docidx``, ``o_sqn``) and the overflow count ``o_n``.  The index is
+    marked built, so it searches these buckets until a document is added.
+    ``index_kwargs`` are the ``IVFIndex`` hyperparameters (``nlist``,
+    ``nprobe``, ``spill_frac``, ...), which the search reads.
+    """
+    if len(ivf_state) != 11:
+        raise ValueError(f"an IVF state has 11 arrays, got {len(ivf_state)}")
+    index = index_from_numpy_state(doc_ids, device_arrays, space=space, backend="ivf",
+                                   device=device, **index_kwargs)
+    ivf = index._backend
+    dev = ivf.device
+    cent, b_emb, b_pay, b_valid, b_docidx, b_sqn, o_emb, o_pay, o_docidx, o_sqn, o_n = ivf_state
+    ivf._dev = (
+        _tensor(cent, dev).to(torch.float32), _tensor(b_emb, dev),
+        _tensor(b_pay, dev).to(torch.float32), _tensor(b_valid, dev).to(torch.bool),
+        _tensor(b_docidx, dev).to(torch.int32), _tensor(b_sqn, dev).to(torch.float32),
+        _tensor(o_emb, dev), _tensor(o_pay, dev).to(torch.float32),
+        _tensor(o_docidx, dev).to(torch.int32), _tensor(o_sqn, dev).to(torch.float32),
+        int(np.asarray(o_n)),
+    )
+    ivf._built_len = len(ivf.store)
+    return index
+
+
 def stats_from_numpy_state(medians: Any, mads: Any,
                            keys: Sequence[str] = SIGNAL_FIELDS) -> RobustStats:
     """``RobustStats`` from per-key median and MAD arrays (or dicts)."""
@@ -88,4 +128,5 @@ def stats_from_numpy_state(medians: Any, mads: Any,
                        keys=tuple(keys))
 
 
-__all__ = ["index_from_numpy_state", "stats_from_numpy_state"]
+__all__ = ["index_from_numpy_state", "ivf_index_from_numpy_state",
+           "stats_from_numpy_state"]

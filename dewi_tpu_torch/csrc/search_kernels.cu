@@ -1,7 +1,8 @@
 // Stage-1 search kernels for Hopper (sm_90a).
 //
-// Hand-written CUDA ports of the eight Pallas kernels on the search path of
-// dewi_tpu/ops/pallas_search.py:
+// Hand-written CUDA ports of the eight stage-1 Pallas kernels of
+// dewi_tpu/ops/pallas_search.py (its two streaming searches are in
+// stream_kernels.cu):
 //
 //   dewi_bmax_s4          <- pallas_bmax_s4          (:661, _bmax_kernel_s4 :651, _s4_acc :428)
 //   dewi_scores_matrix_s4 <- pallas_scores_matrix_s4 (:470, _scores_kernel_s4 :458)
@@ -58,45 +59,15 @@
 // columns q0 .. q0+g of its [cap/128, ldo] output.  Speed work (wgmma, TMA,
 // persistent CTAs) is left for later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
-#include <mutex>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kSub = 128;                  // rows per CTA == BLOCKMAX_SUB
-constexpr int kThreads = kSub;             // one thread per corpus row
-constexpr int kSlabBytes = 256;            // bytes of each row staged per pass
-constexpr int kStride = kSlabBytes + 16;   // padded shared-memory row stride
-constexpr int kTileBytes = kSub * kStride;
-constexpr int kMaxSmem = 232448;           // per-block limit on sm_90
+using namespace dewi;
 
 enum Kind { kInt8 = 0, kBf16 = 1, kS4 = 2, kS8 = 3 };
 
 __host__ __device__ constexpr bool s8_query(int kind) { return kind == kS4 || kind == kS8; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-// Eight bf16 values (little-endian pairs in four words) to f32.
-__device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float* f) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[2 * k] = __uint_as_float(w[k] << 16);
-    f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 template <int KIND, bool BMAX, int QT>
 __global__ void __launch_bounds__(kThreads)
@@ -147,15 +118,7 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   for (int s0 = 0; s0 < row_bytes; s0 += kSlabBytes) {
     const int sb = min(kSlabBytes, row_bytes - s0);
     const int cpr = sb / 16;  // 16-byte chunks per row in this slab
-    __syncthreads();          // the previous slab has been consumed
-    for (int i = tid; i < kSub * cpr; i += kThreads) {
-      const int r = i / cpr;
-      const int c = i - r * cpr;
-      cp_async16(tile + r * kStride + c * 16,
-                 emb + (row0 + r) * row_bytes + s0 + c * 16);
-    }
-    cp_async_wait_all();
-    __syncthreads();
+    stage_slab(tile, emb, row0, row_bytes, s0, sb, tid);
 
     for (int c = 0; c < cpr; ++c) {
       const uint4 raw = *reinterpret_cast<const uint4*>(my + c * 16);
@@ -204,13 +167,7 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
         constexpr int kElems = KIND == kInt8 ? 16 : 8;
         float x[kElems];
         if constexpr (KIND == kInt8) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              x[4 * k + b] = static_cast<float>(static_cast<int8_t>((w[k] >> (8 * b)) & 0xFFu));
-            }
-          }
+          s8x16_to_f32(raw, x);
         } else {
           bf16x8_to_f32(raw, x);
         }
@@ -312,31 +269,6 @@ size_t dyn_smem(int kind, int qt, int d) {
 
 bool fits(int kind, int qt, int d) {
   return dyn_smem(kind, qt, d) + sizeof(float) * qt * (kThreads / 32) <= kMaxSmem;
-}
-
-constexpr int kMaxDevices = 64;
-
-// Opts fn in to smem bytes of dynamic shared memory on the calling thread's
-// current device.  The opt-in holds per device and launches come from any
-// thread, so each instantiation keeps the largest size set on each device:
-// cudaFuncSetAttribute runs only when a launch needs more than that.  The
-// size only grows, and is stored after the call succeeds, under the lock,
-// so a launch that reads a size >= its own needs no call.
-template <typename Fn>
-cudaError_t opt_in_smem(Fn fn, size_t smem, std::atomic<int>* set_on, std::mutex& mu) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const int want = static_cast<int>(smem);
-  if (dev >= kMaxDevices) {
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
-  }
-  if (set_on[dev].load(std::memory_order_acquire) >= want) return cudaSuccess;
-  std::lock_guard<std::mutex> lock(mu);
-  if (set_on[dev].load(std::memory_order_relaxed) >= want) return cudaSuccess;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
-  if (e == cudaSuccess) set_on[dev].store(want, std::memory_order_release);
-  return e;
 }
 
 template <int KIND, bool BMAX, int QT>

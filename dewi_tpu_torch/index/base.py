@@ -20,8 +20,6 @@ from ..utils.device import DeviceLike
 from .store import DocStore
 
 PathLike = Union[str, Path]
-IVF_NOT_PORTED = "IVF tier: see ROADMAP queue 1 step 9"
-IVF_TYPES = ("IVFIndex", "FAISSIndex")
 
 
 def write_payloads_jsonl(path: PathLike, doc_ids: Sequence[str],
@@ -137,11 +135,11 @@ class BaseIndex:
             metadata = json.load(f)
         from . import BACKEND_CLASSES
 
-        if metadata.get("type") in IVF_TYPES:
-            raise NotImplementedError(IVF_NOT_PORTED)
         index_cls = BACKEND_CLASSES.get(metadata.get("type", ""), cls)
         if index_cls is BaseIndex:
             index_cls = BACKEND_CLASSES["ExactIndex"]
+        # Saved hyperparameters are restored unless the caller overrides
+        # them: an IVF index built with nlist=1024/nprobe=32 reloads so.
         hyper = dict(metadata.get("hyperparams", {}))
         # The JAX package's approximate flat select has no counterpart (the
         # port's is always exact); a save by the port omits it, so the JAX

@@ -7,7 +7,7 @@ the same ``config.json``/``meta.json`` layout.  Backend names:
 * ``exact`` / ``bruteforce`` / ``auto`` / ``hnsw`` / ``faiss_hnsw`` -> ExactIndex
 * ``quantized`` / ``int8`` / ``scann`` -> QuantizedIndex
 * ``int4`` -> QuantizedIndex(int4_storage=True)
-* ``ivf`` / ``faiss_ivfflat`` -> not ported yet (raises)
+* ``ivf`` / ``faiss_ivfflat`` -> IVFIndex (k-means + probed buckets)
 
 ``device=None`` runs on the card and raises without one; pass
 ``device="cpu"`` to run on the CPU.
@@ -26,8 +26,9 @@ import torch
 
 from ..types import Payload
 from ..utils.device import DeviceLike
-from .base import IVF_NOT_PORTED, IVF_TYPES, BaseIndex
+from .base import BaseIndex
 from .exact import ExactIndex
+from .ivf import IVFIndex
 from .quantized import QuantizedIndex
 
 logger = logging.getLogger(__name__)
@@ -54,7 +55,7 @@ class IndexBackend(Enum):
 
     def resolve(self) -> type:
         if self in (IndexBackend.IVF, IndexBackend.FAISS_IVFFLAT):
-            raise NotImplementedError(IVF_NOT_PORTED)
+            return IVFIndex
         if self is IndexBackend.QUANTIZED:
             return QuantizedIndex
         return ExactIndex
@@ -189,8 +190,6 @@ class DewiIndex:
         from . import BACKEND_CLASSES
 
         backend_type = cfg.get("backend_type", "ExactIndex")
-        if backend_type in IVF_TYPES:
-            raise NotImplementedError(IVF_NOT_PORTED)
         ann_cls = BACKEND_CLASSES.get(backend_type, ExactIndex)
         ann = ann_cls.load(p / "ann_index", device=device)
         inst = cls(dim=cfg["dim"], space=cfg["space"], backend="exact",

@@ -1,11 +1,12 @@
-"""Build the stage-1 CUDA kernels with nvcc at first use and load them.
+"""Build the search CUDA kernels with nvcc at first use and load them.
 
-``csrc/search_kernels.cu`` has a plain C interface, so it is compiled by
-``nvcc`` straight into a shared library and bound with ``ctypes``: a build
-takes seconds, where an extension that includes PyTorch's headers takes
-minutes.  The library goes into ``dewi_tpu_torch/_build/<hash>/``, keyed by
-a hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused.  Nothing here runs at import time.
+The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
+them (one process per source, all started together) and links one shared
+library that is bound with ``ctypes``: a build takes seconds, where an
+extension that includes PyTorch's headers takes minutes.  The library goes
+into ``dewi_tpu_torch/_build/<hash>/``, keyed by a hash of the sources,
+headers and flags, so an edited source builds anew and an unchanged one is
+reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("search_kernels.cu",)
+SOURCES = ("search_kernels.cu", "stream_kernels.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -39,6 +41,7 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # emb, emb_bf16, q, mult, add, out, out_bf16, nq, d, cap, stream
     "dewi_scores_matrix": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P),
@@ -59,6 +62,15 @@ _SIGNATURES = {
     # kind (0 int8 rows, 1 bf16 rows, 2 packed int4 rows, 3 int8 rows with
     # s8 queries), d
     "dewi_queries_per_launch": (_I, _I),
+    # emb, pay, q, nq, d, cap, n_valid, 1 - eta, eta, entropy_pref / 2, k,
+    # chunks, part_scores, part_ids, out_scores, out_ids, stream
+    "dewi_stream_search": (_P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
+                           _P, _P, _P, _P, _P),
+    # emb, scales, then as dewi_stream_search from pay on
+    "dewi_int8_stream_search": (_P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
+                                _P, _P, _P, _P, _P),
+    # d
+    "dewi_stream_queries_per_launch": (_I,),
 }
 
 
@@ -76,14 +88,14 @@ def find_nvcc() -> str:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the stage-1 "
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the search "
         "CUDA kernels are built from dewi_tpu_torch/csrc at first use"
     )
 
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -95,24 +107,32 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
+    """Compile every source to an object, all at once, then link them."""
     global build_seconds
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        logs = [" ".join(c) + "\n" + p.communicate()[0] for c, p in zip(cmds, procs)]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        lib = str(Path(tmp) / "lib.so")
+        if not failed:
+            link = [nvcc, "-shared", "-o", lib, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        build_seconds = time.perf_counter() - t0
+        log = "\n".join(logs)
+        (out.parent / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed (rc {failed[0]}):\n{log[-4000:]}")
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def load_library() -> ctypes.CDLL:

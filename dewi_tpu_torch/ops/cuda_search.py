@@ -1,8 +1,9 @@
-"""Stage-1 search kernels: CUDA wrappers, their plain versions, launch counts.
+"""Search kernels: CUDA wrappers, their plain versions, launch counts.
 
-Counterpart of ``dewi_tpu/ops/pallas_search.py``.  Eight of its Pallas
-kernels lie on the search path and are ported here as hand-written CUDA
-(``dewi_tpu_torch/csrc/search_kernels.cu``):
+Counterpart of ``dewi_tpu/ops/pallas_search.py``.  All ten of its Pallas
+kernels are ported here as hand-written CUDA (the stage-1 kernels in
+``dewi_tpu_torch/csrc/search_kernels.cu``, the two streaming searches in
+``dewi_tpu_torch/csrc/stream_kernels.cu``):
 
 ======================  ======================================  ===============================  ============
 wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from                      bound, Q=1
@@ -15,6 +16,8 @@ wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from     
 ``scores_matrix_s8``    ``pallas_scores_matrix_s8`` :378        int8-query tier, unfused route   281.0 MB
 ``bmax_t``              ``pallas_bmax_t`` :740                  int8 tier, corpus-major block    276.8 MB
 ``bmax_s8_t``           ``pallas_bmax_s8_t`` :793               int8-query tier, same block      276.8 MB
+``stream_search``       ``pallas_fused_search`` :129            the bench's streaming section    1056 MB
+``int8_stream_search``  ``pallas_int8_search`` :239             the same, over the int8 codes    292.0 MB
 ======================  ======================================  ===============================  ============
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -27,12 +30,14 @@ version, which the CPU tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernel against on the card.  There is no
 fallback from the kernel to the plain version.  The corpus-major
 wrappers (``*_t``) return ``[cap/128, Q]``, the transpose of their
-query-major twins.
+query-major twins.  The two streaming searches return ``[Q, k]`` scores
+and row ids and read only the live rows.
 
-Bound on an H100 (3.35 TB/s): all eight are memory-bound at Q <= 32.  The
+Bound on an H100 (3.35 TB/s): all ten are memory-bound at Q <= 32.  The
 last column is what each moves at 1M x 256 (int8 or packed int4 rows,
-bf16 rows for ``scores_matrix``), Q=1: 42.6, 43.8, 82.6, 164, 82.6, 83.9,
-82.6 and 82.6 us.
+bf16 rows for ``scores_matrix``, f32 rows for ``stream_search``; 1,000,000
+live rows for the streaming searches), Q=1: 42.6, 43.8, 82.6, 164, 82.6,
+83.9, 82.6, 82.6, 315 and 87.2 us.
 
 torch has no integer matmul on the CPU, so the plain versions compute the
 integer dots from the integer values in floating point: the s8 x s4 dot in
@@ -44,8 +49,9 @@ s8 x s8 dot in f64, which is exact where f32 is not (127^2 * D passes
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 # Routing constants of the JAX package (pallas_search.py:293, 521-522).
@@ -55,12 +61,21 @@ SCORES_BLOCK = 8192
 BMAX_BLOCK = 16384
 BLOCKMAX_SUB = 128
 MAX_QUERIES = 32  # queries per launch: the kernel keeps them all on chip
+# The streaming searches (pallas_search.py:42-43): the masked score is a
+# finite float, not -inf; BLOCK is the reference's default ``block``.
+STREAM_NEG_INF = -3.4e38
+BLOCK = 1024
+STREAM_MAX_K = 32       # the kernels keep lists of 32 candidates, one per lane
+# Live rows per CTA of a streaming search: 2048 rows give 489 CTAs at 1M
+# rows, which all 132 SMs hold at once.
+STREAM_CHUNK_ROWS = 2048
 # Corpus kinds of dewi_queries_per_launch.
 _KIND_INT8, _KIND_BF16, _KIND_S4, _KIND_S8 = 0, 1, 2, 3
 
 launch_counts: Dict[str, int] = {
     "bmax_s4": 0, "scores_matrix_s4": 0, "bmax": 0, "scores_matrix": 0,
     "bmax_s8": 0, "scores_matrix_s8": 0, "bmax_t": 0, "bmax_s8_t": 0,
+    "stream_search": 0, "int8_stream_search": 0,
 }
 _count_lock = threading.Lock()  # launches may come from several threads
 
@@ -257,6 +272,44 @@ def bmax_t_plain(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
 def bmax_s8_t_plain(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
                     q_i8: torch.Tensor, q_scale: torch.Tensor) -> torch.Tensor:
     return bmax_s8_plain(emb_i8, mult, add, q_i8, q_scale).T.contiguous()
+
+
+def _stream_select(sim: torch.Tensor, payloads: torch.Tensor, n_valid: int,
+                   eta: float, entropy_pref: float, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank ``sim [Q, cap]`` from the raw payload columns, term by term
+    as ``_search_kernel`` (pallas_search.py:102-110), mask rows >=
+    ``n_valid`` with -3.4e38 and take the k best: a stable descending sort
+    puts the lower row first among equal scores; slots that hold no row
+    above -3.4e38 are (-3.4e38, 0)."""
+    dev = sim.device
+    eta_t = torch.as_tensor(eta, dtype=torch.float32, device=dev)
+    half_ep = torch.as_tensor(entropy_pref, dtype=torch.float32, device=dev) * 0.5
+    adj = ((1.0 - eta_t) * sim + (eta_t * payloads[:, 0])[None, :]
+           + (half_ep * (payloads[:, 1] + payloads[:, 3]))[None, :])
+    neg = torch.full((), STREAM_NEG_INF, dtype=torch.float32, device=dev)
+    col = torch.arange(sim.shape[1], device=dev)
+    adj = torch.where(col[None, :] < n_valid, adj, neg)
+    vals, ids = torch.sort(adj, dim=1, descending=True, stable=True)
+    vals, ids = vals[:, :k], ids[:, :k]
+    empty = ~(vals > neg)
+    return (torch.where(empty, neg, vals).contiguous(),
+            torch.where(empty, torch.zeros_like(ids), ids).to(torch.int32).contiguous())
+
+
+def stream_search_plain(embeddings: torch.Tensor, payloads: torch.Tensor,
+                        queries: torch.Tensor, n_valid: int, eta: float,
+                        entropy_pref: float, k: int = 10
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _stream_select(queries @ embeddings.T, payloads, n_valid, eta, entropy_pref, k)
+
+
+def int8_stream_search_plain(emb_i8: torch.Tensor, scales: torch.Tensor,
+                             payloads: torch.Tensor, queries: torch.Tensor,
+                             n_valid: int, eta: float, entropy_pref: float,
+                             k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    sim = _bf16_dot(emb_i8, queries) * scales[None, :]
+    return _stream_select(sim, payloads, n_valid, eta, entropy_pref, k)
 
 
 # ---- kernel wrappers ----------------------------------------------------
@@ -467,12 +520,129 @@ def bmax_t(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     return out
 
 
+def _check_stream(name: str, emb: torch.Tensor, emb_dtype: torch.dtype,
+                  payloads: torch.Tensor, queries: torch.Tensor, k: int, block: int,
+                  *others: torch.Tensor) -> None:
+    _require(emb.dim() == 2 and emb.dtype == emb_dtype,
+             f"{name}: corpus must be 2-D {emb_dtype}, got {emb.dtype} {tuple(emb.shape)}")
+    cap, d = emb.shape
+    _require(cap > 0 and cap % BLOCKMAX_SUB == 0,
+             f"{name}: capacity {cap} must be a positive multiple of {BLOCKMAX_SUB}")
+    _require(block > 0 and cap % block == 0,
+             f"{name}: capacity {cap} must be a multiple of {block}")
+    _require(payloads.dtype == torch.float32 and tuple(payloads.shape) == (cap, 8),
+             f"{name}: payloads must be float32 [{cap}, 8], got "
+             f"{payloads.dtype} {tuple(payloads.shape)}")
+    _require(queries.dtype == torch.float32 and queries.dim() == 2
+             and queries.shape[1] == d and queries.shape[0] >= 1,
+             f"{name}: queries must be float32 [Q >= 1, {d}], got "
+             f"{queries.dtype} {tuple(queries.shape)}")
+    _require(1 <= k <= min(STREAM_MAX_K, cap),
+             f"{name}: k must be in [1, {min(STREAM_MAX_K, cap)}], got {k}")
+    for t in (emb, payloads, queries) + others:
+        _require(t.device == emb.device,
+                 f"{name}: all tensors must be on {emb.device}, got {t.device}")
+        _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+    _require(emb.device.type in ("cpu", "cuda"), f"{name}: unsupported device {emb.device}")
+    if emb.device.type == "cuda":  # the kernels copy rows 16 bytes at a time
+        _require(emb.data_ptr() % 16 == 0 and payloads.data_ptr() % 16 == 0,
+                 f"{name}: corpus and payloads must be 16-byte aligned")
+        step = 16 // emb.element_size()
+        _require(d % step == 0, f"{name}: dim {d} must be a multiple of {step}")
+
+
+def _stream_launch(name: str, fn_name: str, emb: torch.Tensor, lead: Tuple[int, ...],
+                   payloads: torch.Tensor, queries: torch.Tensor, n_valid: int,
+                   eta: float, entropy_pref: float, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a streaming search once per query group: the partial kernel
+    over ``chunks`` CTAs, then the merge, both inside one library call."""
+    nq, (cap, d) = queries.shape[0], emb.shape
+    dev = emb.device
+    g = int(_library().dewi_stream_queries_per_launch(d))
+    _require(g > 0, f"{name}: dim {d} too wide for one query in shared memory")
+    g = min(g, MAX_QUERIES)
+    n_valid = int(n_valid)
+    live = min(max(n_valid, 0), cap)
+    chunks = max(1, -(-live // STREAM_CHUNK_ROWS))
+    # The scalars go by value, rounded as the reference's f32 scalars.
+    eta32 = np.float32(eta)
+    one_minus_eta = np.float32(1.0) - eta32
+    half_ep = np.float32(entropy_pref) * np.float32(0.5)
+    part_s = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.float32, device=dev)
+    part_i = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.int32, device=dev)
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    for i in range(0, nq, g):
+        q = queries[i:i + g]
+        _launch(name, fn_name, dev, *lead, payloads.data_ptr(), q.data_ptr(), q.shape[0], d,
+                cap, n_valid, float(one_minus_eta), float(eta32), float(half_ep), k, chunks,
+                part_s.data_ptr(), part_i.data_ptr(), out_s[i:i + g].data_ptr(),
+                out_i[i:i + g].data_ptr(), _stream(emb))
+    return out_s, out_i
+
+
+def stream_search(embeddings: torch.Tensor, payloads: torch.Tensor,
+                  queries: torch.Tensor, n_valid: int, eta: float,
+                  entropy_pref: float, k: int = 10, block: int = BLOCK
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact streaming DEWI search: ``([Q, k]`` f32 scores, ``[Q, k]`` i32 rows).
+
+    Replaces ``pallas_fused_search`` (dewi_tpu/ops/pallas_search.py:129).
+    ``embeddings [cap, D]`` and ``queries [Q, D]`` are pre-normalized f32;
+    ``adj = (1 - eta) * (q . row) + eta * pay[:, 0] + entropy_pref * 0.5 *
+    (pay[:, 1] + pay[:, 3])``, rows >= ``n_valid`` at -3.4e38.  Results are
+    in descending score and, among equal scores, the lower row first,
+    however the corpus is chunked; with fewer than ``k`` live rows the
+    remaining slots are (-3.4e38, 0).  (The reference gives those slots row
+    0 when it runs in one block and repeats the best row's id when in
+    several; the port's answer is the same for every chunking.)
+    ``n_valid``, ``eta`` and ``entropy_pref`` are Python numbers and go to
+    the kernel by value.  ``block`` is kept for parity: ``cap % block != 0``
+    raises, and it does not set the kernel's tiling.  ``k`` is at most 32.
+    Bound: bytes (the live rows and their payloads read once).
+    """
+    name = "stream_search"
+    _check_stream(name, embeddings, torch.float32, payloads, queries, k, block)
+    if embeddings.device.type == "cpu":
+        return stream_search_plain(embeddings, payloads, queries, n_valid, eta,
+                                   entropy_pref, k)
+    return _stream_launch(name, "dewi_stream_search", embeddings, (embeddings.data_ptr(),),
+                          payloads, queries, n_valid, eta, entropy_pref, k)
+
+
+def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
+                       payloads: torch.Tensor, queries: torch.Tensor, n_valid: int,
+                       eta: float, entropy_pref: float, k: int = 10, block: int = 2048
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stream_search` over int8 rows with per-row f32 ``scales``.
+
+    Replaces ``pallas_int8_search`` (dewi_tpu/ops/pallas_search.py:239):
+    ``sim = (bf16(q) . row) * scale[row]`` with an f32 sum of exact
+    products, then the same re-rank, mask, order and empty slots.  Bound:
+    bytes (the live int8 rows, their scales and payloads read once).
+    """
+    name = "int8_stream_search"
+    _check_stream(name, emb_i8, torch.int8, payloads, queries, k, block, scales)
+    _require(scales.dtype == torch.float32 and tuple(scales.shape) == (emb_i8.shape[0],),
+             f"{name}: scales must be float32 [{emb_i8.shape[0]}]")
+    if emb_i8.device.type == "cpu":
+        return int8_stream_search_plain(emb_i8, scales, payloads, queries, n_valid, eta,
+                                        entropy_pref, k)
+    return _stream_launch(name, "dewi_int8_stream_search", emb_i8,
+                          (emb_i8.data_ptr(), scales.data_ptr()), payloads, queries,
+                          n_valid, eta, entropy_pref, k)
+
+
 __all__ = [
-    "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES",
+    "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES", "BLOCK",
+    "STREAM_NEG_INF", "STREAM_MAX_K",
     "launch_counts", "reset_launch_counts",
     "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
     "scores_matrix_s8", "bmax_s8", "bmax_t", "bmax_s8_t",
+    "stream_search", "int8_stream_search",
     "scores_matrix_plain", "bmax_plain", "scores_matrix_s4_plain",
     "bmax_s4_plain", "scores_matrix_s8_plain", "bmax_s8_plain",
     "bmax_t_plain", "bmax_s8_t_plain", "s8_dot",
+    "stream_search_plain", "int8_stream_search_plain",
 ]

@@ -275,7 +275,8 @@ class MicroBatcher:
                 n_live = len(doc_ids)
                 for i, r in enumerate(reqs):
                     # k is clamped to capacity: ranks past the corpus carry
-                    # pad-row indices with -inf scores, dropped here.
+                    # pad-row indices (or, from the IVF tier, -1 for an
+                    # exhausted pool or a deduped slot), dropped here.
                     pairs = [(doc_ids[j], float(s)) for j, s in zip(rows[i], scores[i])
                              if 0 <= j < n_live]
                     r.future.set_result(([p[0] for p in pairs], [p[1] for p in pairs]))
@@ -457,7 +458,7 @@ def retier_index(index: Any, backend: str) -> Any:
     """Re-tier a loaded index's stored corpus into a different backend.
 
     The stored ids, embeddings and payloads re-ingest into the requested
-    backend on the index's device; search defaults, metadata and encoder
+    backend (exact, int8, int4 or IVF) on the index's device; search defaults, metadata and encoder
     provenance carry over.  Returns ``index`` unchanged when it already
     uses the requested backend.
     """

@@ -20,6 +20,7 @@ from dewi_tpu.ops import similarity as jsim
 from dewi_tpu_torch import (DewiIndex, DewiScorer, Payload, Signals, Weights,
                             index_from_numpy_state, stats_from_numpy_state)
 from dewi_tpu_torch.index import DocStore
+from dewi_tpu_torch.index import ExactIndex as ExactIndexPort
 from dewi_tpu_torch.ops import cuda_search
 
 from test_torch_search import assert_same_topk
@@ -80,6 +81,131 @@ def test_padding_rows_never_returned():
                      np.zeros((20, 8), np.float32))
         s, i = ix.search_batch(rng.normal(size=(3, 32)).astype(np.float32), k=10)
         assert int(i.max()) < 20 and torch.isfinite(s).all()
+
+
+# ---- attach_device ---------------------------------------------------------
+
+
+def _small(n=64, d=32, seed=0):
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n, d)).astype(np.float32)
+    pay = np.abs(rng.normal(size=(n, 8))).astype(np.float32)
+    return [str(i) for i in range(n)], emb, pay, rng
+
+
+@pytest.mark.parametrize("backend,kw", [("exact", {}), ("exact", {"space": "l2"}),
+                                        ("exact", {"dtype": torch.bfloat16}),
+                                        ("int8", {}), ("ivf", {"nlist": 4, "nprobe": 4})])
+def test_attach_matches_add_batch(backend, kw):
+    """A corpus attached as tensors searches as one filled by ``add_batch``,
+    and as the JAX store filled through its own ``attach_device``."""
+    ids, emb, pay, rng = _small()
+    a = DewiIndex(dim=32, backend=backend, device="cpu", **kw)
+    a.add_batch(ids, emb, pay)
+    b = DewiIndex(dim=32, backend=backend, device="cpu", **kw)
+    b._backend.store.attach_device(ids, torch.from_numpy(emb), torch.from_numpy(pay))
+    assert b._backend.store._host_stale and len(b) == 64
+    assert b._backend.store.capacity == 1024
+    q = rng.normal(size=(5, 32)).astype(np.float32)
+    sa, ia = a.search_batch(q, k=5, eta=0.3, entropy_pref=0.1)
+    sb, ib = b.search_batch(q, k=5, eta=0.3, entropy_pref=0.1)
+    assert torch.equal(ia, ib) and torch.equal(sa, sb)
+    assert b._backend.store._host_stale  # searching fetched nothing
+    if backend == "exact":
+        jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v) for k, v in kw.items()}
+        ref = JDewiIndex(dim=32, backend="exact", **jkw)
+        ref._backend.store.attach_device(ids, jnp.asarray(emb), jnp.asarray(pay))
+        s_ref, i_ref = ref.search_batch(q, k=5, eta=0.3, entropy_pref=0.1)
+        tol = 1e-2 if kw.get("dtype") is torch.bfloat16 else 1e-5
+        assert_same_topk(sb, ib, s_ref, i_ref, rtol=tol, atol=tol)
+    ra = a.search(q[0], k=5, eta=0.3, entropy_pref=0.1)
+    rb = b.search(q[0], k=5, eta=0.3, entropy_pref=0.1)
+    assert [r[0] for r in ra] == [r[0] for r in rb]
+    for (_, _, pa), (_, _, pb) in zip(ra, rb):
+        assert pa.dewi == pytest.approx(pb.dewi, abs=1e-6)
+
+
+def test_attach_then_host_accessors_and_save(tmp_path):
+    ids, emb, pay, rng = _small()
+    idx = DewiIndex(dim=32, device="cpu")
+    store = idx._backend.store
+    store.attach_device(ids, torch.from_numpy(emb), torch.from_numpy(pay))
+    p = idx.get_payload("3")  # lazy host fetch
+    assert p is not None and p.dewi == pytest.approx(float(pay[3, 0]), abs=1e-6)
+    assert not store._host_stale and store.capacity >= 64
+    assert len(store.payload_matrix()) == 64
+    # the mirror holds the device's rows: normalized for a cosine store
+    np.testing.assert_allclose(idx.get_embedding("3"), emb[3] / np.linalg.norm(emb[3]),
+                               rtol=1e-6)
+    store.attach_device(ids, torch.from_numpy(emb), torch.from_numpy(pay))
+    idx.set_dewi_scores(np.linspace(0, 1, 64, dtype=np.float32))
+    assert float(store.device_arrays()[2][63, 0]) == 1.0
+    store.attach_device(ids, torch.from_numpy(emb), torch.from_numpy(pay))
+    idx.build()
+    idx.save(tmp_path / "ix")
+    loaded = DewiIndex.load(tmp_path / "ix", device="cpu")
+    q = rng.normal(size=32).astype(np.float32)
+    assert [r[0] for r in idx.search(q, k=5)] == [r[0] for r in loaded.search(q, k=5)]
+    ref = JDewiIndex.load(tmp_path / "ix")
+    assert [r[0] for r in ref.search(q, k=5)] == [r[0] for r in loaded.search(q, k=5)]
+
+
+def test_attach_validation():
+    store = DocStore(dim=8, device="cpu")
+    with pytest.raises(ValueError, match="embeddings"):
+        store.attach_device(["a"], torch.zeros(1, 4), torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="mismatch"):
+        store.attach_device(["a", "b"], torch.zeros(1, 8), torch.zeros(1, 8))
+    with pytest.raises(ValueError, match="mismatch"):
+        store.attach_device(["a"], torch.zeros(1, 8), torch.zeros(1, 7))
+    with pytest.raises(ValueError, match="lie on"):
+        store.attach_device(["a"], torch.zeros(1, 8, device="meta"), torch.zeros(1, 8))
+    store.attach_device(["a"], np.ones((1, 8), np.float32), np.zeros((1, 8), np.float32))
+    assert len(store) == 1 and store.device_arrays()[3] == 1
+
+
+def test_add_after_attach_buffers_and_merges_on_device():
+    """Adds to a device-resident store are buffered and merged on the device
+    (the reference's cases, tests/test_index.py:305-330, 641-657)."""
+    ids, emb, pay, rng = _small()
+    idx = ExactIndexPort(dim=32, device="cpu")
+    idx.store.attach_device(ids, torch.from_numpy(emb), torch.from_numpy(pay))
+    idx.build()
+    q = rng.normal(size=32).astype(np.float32)
+    idx.add("new", (q / np.linalg.norm(q)).astype(np.float32), Payload(dewi=0.9))
+    idx.add_batch(["n2", "n3"], -np.stack([q, q]), np.zeros((2, 8), np.float32))
+    assert idx.store._host_stale and len(idx) == 67  # still device-resident
+    idx.build()
+    _, row = idx.search_batch(q, k=1, eta=0.0, entropy_pref=0.0)
+    assert idx.store.doc_ids[int(row[0, 0])] == "new"  # the exact match ranks first
+    assert idx.store._host_stale and idx.store.device_arrays()[3] == 67
+    assert idx.get_payload("new").dewi == pytest.approx(0.9, abs=1e-6)
+    # past the device capacity: the arrays grow on the device
+    n = 1024
+    s = DocStore(dim=16, device="cpu")
+    s.attach_device([str(i) for i in range(n)], torch.randn(n, 16), torch.rand(n, 8))
+    s.add("extra", np.ones(16, np.float32), Payload(dewi=0.5))
+    emb_d, sqn_d, pay_d, nv = s.device_arrays()
+    assert emb_d.shape == (2048, 16) and nv == n + 1 and s.capacity == 2048
+    assert float(sqn_d[n]) == pytest.approx(1.0, rel=1e-6) and float(pay_d[n, 0]) == 0.5
+    s2 = DocStore(dim=16, device="cpu")
+    s2.attach_device([str(i) for i in range(n)], torch.randn(n, 16), torch.rand(n, 8))
+    s2.add("extra", np.ones(16, np.float32), Payload(dewi=0.5))
+    assert abs(s2.get_payload("extra").dewi - 0.5) < 1e-6  # host sync folds it in
+    assert s2.payload_matrix().shape[0] == n + 1 and s2.device_arrays()[3] == n + 1
+
+
+def test_attach_device_clears_pending_adds():
+    rng = np.random.default_rng(0)
+    n, d = 64, 8
+    s = DocStore(dim=d, device="cpu")
+    s.attach_device([f"a{i}" for i in range(n)], torch.randn(n, d), torch.rand(n, 8))
+    s.add("ghost", np.ones(d, np.float32), Payload(dewi=0.5))
+    s.attach_device([f"b{i}" for i in range(n)],
+                    rng.normal(size=(n, d)).astype(np.float32),
+                    np.abs(rng.normal(size=(n, 8))).astype(np.float32))
+    _, _, _, nv = s.device_arrays()
+    assert nv == n and len(s) == n and "ghost" not in s.doc_ids
 
 
 # ---- DewiIndex tiers at the fused-route size -------------------------------
@@ -268,8 +394,10 @@ def test_backends_and_device_rule():
         "QuantizedIndex"
     assert DewiIndex(dim=8, backend="int4", device="cpu")._backend.int4_storage
     for name in ("ivf", "faiss_ivfflat"):
-        with pytest.raises(NotImplementedError, match="IVF"):
-            DewiIndex(dim=8, backend=name, device="cpu")
+        ivf = DewiIndex(dim=8, backend=name, device="cpu", nlist=4)
+        assert type(ivf._backend).__name__ == "IVFIndex" and ivf._backend.nlist == 4
+    assert type(DewiIndex(dim=8, backend="ivf", use_ann=False, device="cpu")._backend
+                ).__name__ == "ExactIndex"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DewiIndex(dim=8)

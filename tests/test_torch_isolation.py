@@ -21,7 +21,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-PORT_FILES = sorted((ROOT / "dewi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "dewi_tpu_torch").rglob("*.py"))
+              + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -33,6 +34,7 @@ def test_no_forbidden_imports(path):
 def test_import_pulls_in_no_jax():
     code = ("import sys, dewi_tpu_torch, dewi_tpu_torch.convert; "
             "import dewi_tpu_torch.ops.cuda_search, dewi_tpu_torch.ops._build; "
+            "import dewi_tpu_torch.ops.kmeans, dewi_tpu_torch.index.ivf; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -47,6 +49,28 @@ def test_import_builds_nothing():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_new_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"dewi_tpu_torch/ops/kmeans.py", "dewi_tpu_torch/index/ivf.py",
+            "scripts/torch_stream_chunks.py"} <= names
+
+
+def test_ivf_defaults_to_the_card():
+    """``IVFIndex(dim)`` without ``device=`` runs on the card, and raises
+    where there is none; so does the facade's ``backend="ivf"``."""
+    import torch
+
+    from dewi_tpu_torch import DewiIndex, IVFIndex
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IVFIndex(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DewiIndex(dim=8, backend="ivf")
+    assert IVFIndex(8, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda():

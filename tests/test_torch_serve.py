@@ -260,6 +260,42 @@ class TestServeRetier:
         assert len(set(a) & set(b)) >= 4
 
 
+    def test_retier_to_ivf(self):
+        """``retier_index(index, "ivf")`` re-ingests into an IVFIndex whose
+        default buckets (nlist 100 clamps to the corpus) answer as exact
+        search does at full probe."""
+        idx, _, _ = _make_index()
+        ivf = retier_index(idx, "ivf")
+        assert type(ivf._backend).__name__ == "IVFIndex" and len(ivf) == N
+        assert ivf._built and ivf._backend._dev is not None
+        assert retier_index(ivf, "faiss_ivfflat") is ivf
+        q = np.random.default_rng(1).normal(size=(4, DIM)).astype(np.float32)
+        _, want = idx.search_batch(q, k=5)
+        _, got = ivf.search_batch(q, k=5)
+        hits = [len(set(a.tolist()) & set(b.tolist())) for a, b in zip(got.numpy(),
+                                                                       want.numpy())]
+        assert sum(hits) >= 12  # nprobe 8 of 100 single-digit buckets + the DEWI tier
+
+    def test_served_ivf_query_over_http(self):
+        """A served IVF result drops its -1 ids (exhausted pool, deduped
+        slots) as the reference does: ids and scores stay aligned."""
+        idx, _, _ = _make_index(backend="ivf", n=24, nlist=8, nprobe=1, kmeans_iters=4,
+                                dewi_tier=0, spill_frac=1.0)
+        q = np.random.default_rng(2).normal(size=DIM).astype(np.float32)
+        scores, rows = idx.search_batch(q, k=20)
+        rows, scores = rows.numpy()[0], scores.numpy()[0]
+        assert (rows < 0).any()
+        srv = SearchServer(idx, port=0, window_ms=1.0)
+        srv.start()
+        try:
+            out = _post(srv.port, "/search", {"vector": q.tolist(), "k": 20})
+        finally:
+            srv.shutdown()
+        assert out["ids"] == [idx.doc_ids[j] for j in rows if j >= 0]
+        assert len(out["ids"]) == len(set(out["ids"])) == len(out["scores"])
+        np.testing.assert_allclose(out["scores"], scores[rows >= 0], rtol=1e-6)
+
+
 class TestSmallCorpusK:
     def test_k_exceeding_corpus_filters_pad_rows(self):
         idx, _, _ = _make_index(n=5, dim=8)
