@@ -12,8 +12,12 @@ public entry points:
    card.  The eight stage-1 kernels at the main path's shape (cap 2^20,
    D 256, Q 1 and 32), a ragged one (cap 65,536, D 64, Q 5) and a wide one
    (cap 16,384, D 2048, Q 40, which takes two launches), with their times
-   beside their bounds; the s8 kernels must match bit for bit, and the
-   corpus-major kernels must equal the query-major ones transposed.  The
+   beside their bounds at Q 1 and 32; the s8 kernels must match bit for
+   bit, and the corpus-major kernels must equal the query-major ones
+   transposed.  The tensor-core kernels (``bmax``, ``bmax_t``,
+   ``scores_matrix``) are also timed at Q 1, 2, 4, 8, 16 and 32 over int8
+   and bf16 rows, and ``scores_matrix`` with bf16 output beside the same
+   ``torch.matmul``.  The
    two streaming searches at cap 65,536 x 64 and at 2^20 x 256 with
    1,000,000 live rows, Q 1, 8 and 40 (two launches), k 10, and with fewer
    live rows than k: scores within 1e-5, ids equal where scores differ;
@@ -92,6 +96,7 @@ REPLACES = {
     "int8_stream_search": "dewi_tpu/ops/pallas_search.py:239",
 }
 STREAM_KERNELS = ("stream_search", "int8_stream_search")
+SWEEP_Q = (1, 2, 4, 8, 16, 32)   # query counts of the float-query kernels' sweep
 N_LIVE = 1_000_000          # live rows of the streaming kernels' main shape
 # IVF on unclustered data is not a >= 0.99 tier in general (the reference's
 # own recall curve says so).  On this corpus the re-rank terms lead the
@@ -229,6 +234,38 @@ def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_frac: float
     return float(err.max())
 
 
+def stage1_sweep(x: dict, reps: int = 50) -> dict:
+    """The tensor-core kernels (``bmax``, ``bmax_t``, ``scores_matrix``) over
+    the int8 and the bf16 rows of ``x`` at each Q of ``SWEEP_Q``: CUDA-event
+    medians in ms, keyed ``kernel/rows`` then Q.  At the largest Q also
+    ``scores_matrix`` over bf16 rows with ``out_dtype=torch.bfloat16``
+    beside ``torch.matmul`` of the same bf16 operands (which writes the same
+    bf16 ``[Q, cap]``), and the least time of that call's bytes."""
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    corpora = {"int8": (x["e8"], x["m8"]), "bf16": (x["ebf"], x["mbf"])}
+    out: dict = {}
+    for name, fn in (("bmax", cs.bmax), ("bmax_t", cs.bmax_t),
+                     ("scores_matrix", cs.scores_matrix)):
+        for rows, (emb, mult) in corpora.items():
+            row = out[f"{name}/{rows}"] = {}
+            for nq in SWEEP_Q:
+                q = x["q"][:nq].contiguous()
+                row[nq] = time_device_ms(lambda: fn(emb, mult, x["add"], q), reps, 400_000)
+    nq = SWEEP_Q[-1]
+    q = x["q"][:nq].contiguous()
+    qbf, ebf_t = q.to(torch.bfloat16), x["ebf"].T
+    cap, d = x["ebf"].shape
+    out["scores_matrix/bf16/bf16_out"] = {nq: time_device_ms(
+        lambda: cs.scores_matrix(x["ebf"], x["mbf"], x["add"], q, out_dtype=torch.bfloat16),
+        reps, 400_000)}
+    out["torch.matmul/bf16/bf16_out"] = {nq: time_device_ms(
+        lambda: torch.matmul(qbf, ebf_t), reps, 400_000)}
+    out["bound/bf16/bf16_out"] = {
+        nq: (2 * cap * d + 8 * cap + 4 * nq * d + 2 * nq * cap) / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
 def phase_kernels() -> dict:
     from dewi_tpu_torch.ops import cuda_search as cs
 
@@ -259,6 +296,12 @@ def phase_kernels() -> dict:
             log(f"kernel {name} cap={cap} D={d} Q={nq}: " + json.dumps(row))
             if nq == 1:  # the Q=1 search's shape goes into the kernels line
                 rec.update(row)
+            else:        # ... and the full launch of 32 queries beside it
+                rec.update(q32_ms=ms, q32_plain_ms=plain_ms, q32_bound_ms=bound_ms,
+                           q32_bound_by=bound_by, q32_library_ms=lib_ms)
+        if (cap, nq) == (1 << 20, SWEEP_Q[-1]):
+            for key, row in stage1_sweep(x).items():
+                log(f"sweep {key} cap={cap} D={d} ms by Q: " + json.dumps(row))
         del x
         torch.cuda.empty_cache()
     log("kernel max_abs_err vs plain (all shapes; tolerance rtol + atol_of_max x max|plain|): " +
@@ -953,7 +996,11 @@ def main() -> int:
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                     "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+                     "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                     # the stage-1 kernels at 32 queries (not timed for the
+                     # streaming searches: null)
+                     **{k: rec.get(k) for k in ("q32_ms", "q32_plain_ms", "q32_bound_ms",
+                                                "q32_bound_by", "q32_library_ms")}})
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 // Helpers shared by the search kernels (search_kernels.cu, stream_kernels.cu):
-// the row-tile geometry, cp.async staging and the shared-memory opt-in.
+// the row-tile geometry, cp.async staging, the tensor-core primitives and
+// the shared-memory opt-in.
 
 #pragma once
 
@@ -46,14 +47,58 @@ __device__ __forceinline__ void stage_slab(uint8_t* tile, const uint8_t* emb, lo
   __syncthreads();
 }
 
-// Eight bf16 values (little-endian pairs in four words) to f32.
-__device__ __forceinline__ void bf16x8_to_f32(const uint4 v, float* f) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[2 * k] = __uint_as_float(w[k] << 16);
-    f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
-  }
+// A 16-byte cp.async that copies src_bytes (0 or 16) from gmem and fills
+// the rest with zeros; gmem must be a valid address even for 0 bytes.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D += A * B on the tensor cores: A 16x16 bf16 (row-major fragments),
+// B 16x8 bf16, D 16x8 f32.  With g = lane / 4 and t = lane % 4 a thread
+// holds a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8,
+// 2t+9], a[3] = A[g+8][2t+8, 2t+9]; b0 = B[2t, 2t+1][g], b1 = B[2t+8,
+// 2t+9][g]; c[0], c[1] = D[g][2t, 2t+1], c[2], c[3] = D[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four s8 values (one word) to two bf16 pairs, exactly: lo = {v0, v1},
+// hi = {v2, v3}.  A permute puts 0x43 above each byte b.  With bit 7 of b
+// cleared that half reads as the bf16 128 + (b & 127); with the low seven
+// bits cleared, as 128 + (b & 128), since bit 7 of the half is the
+// exponent's lowest bit.  Their difference is (b & 127) - (b & 128), the
+// value of the s8 byte, and is exact in bf16.  Full-rate permutes, logic
+// and one packed subtract per pair in place of the quarter-rate int ->
+// float conversion.
+__device__ __forceinline__ uint32_t s8_halves_to_bf16x2(uint32_t p) {
+  const uint32_t x = p & 0xFF7FFF7Fu;
+  const uint32_t y = p & 0xFF80FF80u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&y));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ void s8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = s8_halves_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4140));
+  hi = s8_halves_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4342));
 }
 
 // Sixteen int8 values (four words) to f32.

@@ -38,26 +38,73 @@
 // the same accumulator the results agree bit for bit.
 //
 // Bound on this card: all of them stream the corpus once and do little
-// work per byte (2*Q operations per element at Q <= 32), so they are bound
-// by device-memory bytes: the corpus, mult and add read once, the output
-// written once.
+// work per byte (2*Q operations per element at Q <= 32), so the least time
+// is that of the device-memory bytes: the corpus, mult and add read once,
+// the output written once.  On the CUDA cores that holds only for a few
+// queries (32 multiply-adds per element are 0.26 ms of f32 work at 2^20 x
+// 256, three times the memory time); on the tensor cores the same product
+// is a fifth of the memory time, so the float-query kinds run there.
 //
-// Design: one CTA of 128 threads per 128-row sub-block, one thread per
-// corpus row.  Each row is staged into shared memory 256 bytes at a time
-// with 16-byte cp.async copies (neighbouring threads on neighbouring
-// addresses), rows padded by 16 bytes so the per-thread 16-byte reads are
-// free of bank conflicts.  All Q <= 32 queries sit in shared memory and are
-// read as broadcasts; each thread keeps one accumulator per query in
-// registers.  The sub-block max is a warp-shuffle reduction plus one
-// shared-memory step across the four warps.  The staged queries are s8 for
-// s8 queries, bf16 for float queries over int8 rows (they are rounded to
-// bf16 anyway; half the shared-memory reads made this kind faster on an
-// H100) and f32 for bf16 rows (converting bf16 queries as well as bf16 rows
-// made that kind slower).  Where QT queries of dim d do not fit in shared
-// memory, dewi_queries_per_launch tells the wrapper how many do, and it
-// launches once per group of that many; a corpus-major launch then writes
-// columns q0 .. q0+g of its [cap/128, ldo] output.  Speed work (wgmma, TMA,
-// persistent CTAs) is left for later.
+// Design, float queries (stage1_mma_kernel: dewi_bmax, dewi_scores_matrix,
+// dewi_bmax_t over int8 or bf16 rows).  The product runs on the tensor
+// cores as mma.sync m16n8k16 (bf16 x bf16 -> f32) with the corpus rows as
+// the 16-row operand and the queries, zero-padded to tiles of 8, as the
+// 8-column one, so one pass over the rows serves every query of the
+// launch (1, 2 or 4 query tiles) and a score does not depend on how many
+// queries ride with it.
+//   * Each warp is a worker of its own: it walks whole 128-row sub-blocks
+//     (sub-block w, w + W, ... of the W warps of a persistent grid), 32
+//     rows (two 16-row tiles) at a time, and keeps the running maximum of
+//     the sub-block in registers, so the block max needs no shared memory
+//     and the main loop no CTA barrier.
+//   * Loads stay in flight while the warp computes: a ring of kStages
+//     slabs (32 rows x 256 bytes, so 8 KB of one contiguous range where a
+//     row is 256 bytes) per warp filled by 16-byte cp.async copies, the
+//     next slab always in flight, across row groups and sub-blocks, so a
+//     group's epilogue overlaps the next one's loads.  One CTA of 8 warps
+//     per SM keeps 64 KB in flight.  Measured on an H100 at 2^20 x 256:
+//     slab rows of 64, 128 and 256 bytes gave 0.147, 0.110 and 0.098 ms at
+//     Q=1 over int8 rows (wide contiguous requests matter more than the
+//     number of warps or stages), 8 warps beat 4, 6, 10 and 12, and a
+//     third stage gained nothing.
+//   * A thread feeds its fragments from 16 consecutive bytes of a row (its
+//     quad covers 64): a dot product does not care in which order k runs,
+//     so those bytes take the k slots of 4 (int8) or 2 (bf16) mma steps
+//     and the queries are laid out once per CTA in the same order, one
+//     16-byte vector per lane, tile and step pair.  The 16-byte chunks of
+//     a slab row are XOR-swizzled by the row's parity, which makes both
+//     the copies and the reads free of bank conflicts; a k tail is
+//     zero-filled by the copy (zero rows against zero-padded queries).
+//   * int8 rows become bf16 once per element (s8x4_to_bf16x4: a byte
+//     permute, two masks and one packed subtract per pair, all full
+//     rate); every s8 value is exact in bf16, so the products stay exact
+//     in f32.
+//   * The epilogue is one fmaf(acc, mult, add) per score, mult/add loaded
+//     a row group ahead; the maxima of a sub-block are reduced over the
+//     accumulator fragments by three shuffles.  The [Q, cap] store writes
+//     whole 32-byte sectors (8 consecutive rows of a query) from the
+//     accumulator layout.
+//   * RowOperand<KIND> is all that knows the operand type (bytes to
+//     fragments, the mma): the ring, the walk, the reduction and the
+//     epilogue do not.
+// The tensor cores add the 16 exact products of a step and the running sum
+// in their own order and precision, so a result may differ from an f32
+// sum in sequence by a few ulps of the largest partial sum.
+//
+// Design, s8 queries (stage1_kernel: the s8 and s4 kinds): one CTA of 128
+// threads per 128-row sub-block, one thread per corpus row.  Each row is
+// staged into shared memory 256 bytes at a time with 16-byte cp.async
+// copies (neighbouring threads on neighbouring addresses), rows padded by
+// 16 bytes so the per-thread 16-byte reads are free of bank conflicts.
+// All Q <= 32 queries sit in shared memory as s8 and are read as
+// broadcasts; each thread keeps one int32 accumulator per query in
+// registers (exact __dp4a sums).  The sub-block max is a warp-shuffle
+// reduction plus one shared-memory step across the four warps.
+//
+// Where the queries of a launch at dim d do not fit in shared memory,
+// dewi_queries_per_launch tells the wrapper how many do, and it launches
+// once per group of that many; a corpus-major launch then writes columns
+// q0 .. q0+g of its [cap/128, ldo] output.
 
 #include "common.cuh"
 
@@ -67,52 +114,394 @@ using namespace dewi;
 
 enum Kind { kInt8 = 0, kBf16 = 1, kS4 = 2, kS8 = 3 };
 
-__host__ __device__ constexpr bool s8_query(int kind) { return kind == kS4 || kind == kS8; }
+struct Args {
+  const void* emb;
+  int row_bytes;
+  const float* qf;
+  const int8_t* q8;
+  const float* qscale;
+  const float* mult;
+  const float* add;
+  void* out;
+  int out_bf16;
+  int nq;
+  int d;
+  long long cap;
+  long long out_qstride;  // block-max store: out[q * out_qstride + b * out_bstride]
+  long long out_bstride;
+};
+
+// ---- float queries: bf16 mma.sync on the tensor cores -----------------------
+
+constexpr int kMmaWarps = 8;                  // workers per CTA, fewer where the queries are wide
+constexpr int kMmaMinWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kGroupRows = 32;                // rows a warp multiplies at a time
+constexpr int kMTiles = kGroupRows / 16;      // ... as m16 tiles
+constexpr int kGroups = kSub / kGroupRows;    // row groups of a sub-block
+constexpr int kRingSlabBytes = 256;           // bytes of each row in one ring stage
+constexpr int kStageBytes = kGroupRows * kRingSlabBytes;
+constexpr int kStages = 2;                    // ring depth: kStages - 1 slabs in flight
+constexpr int kRingBytes = kStages * kStageBytes;  // per warp
+constexpr int kChunkBytes = 64;               // bytes of a row a quad feeds per chunk
+constexpr int kSlabChunks = kRingSlabBytes / kChunkBytes;
+constexpr int kSlabVecs = kRingSlabBytes / 16;  // 16-byte vectors of a slab row
+// A lane reads vector 4c + t of rows g, g + 8, ...: eight lanes (two rows,
+// four vectors each) must cover all 32 banks, so vector j of a slab row
+// sits at j ^ kSwizzle * (row & 1).
+constexpr int kSwizzle = 4;
+static_assert(kSlabVecs == 8 || kSlabVecs == 16 || kSlabVecs == 32,
+              "a slab row is 128, 256 or 512 bytes");
+constexpr int kQueryTile = 8;                 // queries per mma column tile
+
+// All that the tensor-core kernel knows of the rows' type: how many 16-byte
+// query vectors and mma k-steps a lane's 16 row bytes make, how those
+// bytes become the A fragments of step j (rows g and g + 8 of an m16 tile),
+// and the mma itself.
+template <int KIND>
+struct RowOperand;
+
+struct Bf16Mma {
+  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_bf16_16816(c, a, b0, b1);
+  }
+};
+
+template <>
+struct RowOperand<kInt8> : Bf16Mma {
+  static constexpr int kQueryVecs = 2;  // 16 row elements: 16 bf16 of the query
+  static constexpr int kSteps = 4;
+  static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
+                                                uint32_t (&a)[4]) {
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
+    s8x4_to_bf16x4(wl[j], a[0], a[2]);
+    s8x4_to_bf16x4(wh[j], a[1], a[3]);
+  }
+};
+
+template <>
+struct RowOperand<kBf16> : Bf16Mma {
+  static constexpr int kQueryVecs = 1;  // 8 row elements: 8 bf16 of the query
+  static constexpr int kSteps = 2;
+  static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
+                                                uint32_t (&a)[4]) {
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
+    a[0] = wl[2 * j];
+    a[2] = wl[2 * j + 1];
+    a[1] = wh[2 * j];
+    a[3] = wh[2 * j + 1];
+  }
+};
+
+// Dynamic shared memory of one CTA: the queries in fragment order (one
+// 16-byte vector per lane, query tile, chunk and query vector) and a ring
+// per warp.
+__host__ __device__ constexpr size_t mma_query_bytes(int kind, int nt, int row_bytes) {
+  return static_cast<size_t>(nt) * ((row_bytes + kChunkBytes - 1) / kChunkBytes) *
+         (kind == kInt8 ? 2 : 1) * 32 * 16;
+}
+
+// The warps of a CTA at this query size: as many rings as fit beside the
+// queries, at most kMmaWarps; below kMmaMinWarps the queries do not fit.
+int mma_warps(int kind, int nt, int row_bytes) {
+  const size_t q = mma_query_bytes(kind, nt, row_bytes);
+  if (q + kMmaMinWarps * kRingBytes > kMaxSmem) return 0;
+  const int fit = static_cast<int>((kMaxSmem - q) / kRingBytes);
+  return fit < kMmaWarps ? fit : kMmaWarps;
+}
+
+template <int KIND, bool BMAX, int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
+                  const float* __restrict__ qf,  // [nq, d] f32
+                  const float* __restrict__ mult, const float* __restrict__ add,
+                  void* __restrict__ out, int out_bf16, int nq, int d, long long cap,
+                  long long out_qstride, long long out_bstride) {
+  using Op = RowOperand<KIND>;
+  constexpr int QV = Op::kQueryVecs;
+  constexpr int kLaneElems = 8 * QV;  // row elements in a lane's 16 bytes
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint4* qfrag = reinterpret_cast<uint4*>(smem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // row of the fragment
+  const int t = lane & 3;   // its k slots
+  const int nchunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
+
+  // Stage the queries once per CTA, rounded to bf16 as the TPU kernel casts
+  // them before the dot, in the order the lanes read them: vector v of
+  // lane (g, t) for tile nt and chunk c holds elements (4c + t) *
+  // kLaneElems + 8v .. +7 of query 8 nt + g; zeros past nq and past d.
+  for (int i = tid; i < NT * nchunks * QV * 32; i += blockDim.x) {
+    const int ln = i & 31;
+    int r = i >> 5;
+    const int v = r % QV;
+    r /= QV;
+    const int c = r % nchunks;
+    const int q = (r / nchunks) * kQueryTile + (ln >> 2);
+    const int e0 = (c * 4 + (ln & 3)) * kLaneElems + v * 8;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (q < nq && e0 < d) {  // d is a multiple of 8: a vector is all in or all out
+      const float* src = qf + static_cast<long long>(q) * d + e0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
+        w[k] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+    }
+    qfrag[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __syncthreads();
+
+  uint8_t* ring = smem + mma_query_bytes(KIND, NT, row_bytes) + warp * kRingBytes;
+  const long long nsb = cap / kSub;
+  const int cta_warps = blockDim.x >> 5;
+  const int nwarps = gridDim.x * cta_warps;
+  const int wid = blockIdx.x * cta_warps + warp;
+  const int nslab = (row_bytes + kRingSlabBytes - 1) / kRingSlabBytes;
+  const long long mine = wid < nsb ? (nsb - wid + nwarps - 1) / nwarps : 0;
+  const long long total = mine * kGroups * nslab;  // slabs this warp walks
+
+  // Producer: slab p_s of row group p_g of sub-block p_sb goes to a ring
+  // stage, kCopyRows rows per copy instruction (kSlabVecs lanes x 16 bytes
+  // a row).
+  constexpr int kCopyRows = 32 / kSlabVecs;
+  long long p_sb = wid;
+  int p_g = 0, p_s = 0;
+  const int p_row = lane / kSlabVecs;
+  const int p_vec = lane % kSlabVecs;
+  const int p_dst = p_row * kRingSlabBytes + ((p_vec ^ ((p_row & 1) * kSwizzle)) << 4);
+  auto fetch = [&](int stage) {
+    const int col = p_s * kRingSlabBytes + p_vec * 16;
+    if (col < nchunks * kChunkBytes) {            // the chunks that are read
+      const int nbytes = col < row_bytes ? 16 : 0;  // a k tail is zero-filled
+      const uint8_t* src =
+          emb + (p_sb * kSub + p_g * kGroupRows + p_row) * row_bytes + (nbytes ? col : 0);
+      uint8_t* dst = ring + stage * kStageBytes + p_dst;
+#pragma unroll
+      for (int i = 0; i < kGroupRows / kCopyRows; ++i) {
+        cp_async16_zfill(dst + i * kCopyRows * kRingSlabBytes,
+                         src + static_cast<long long>(i) * kCopyRows * row_bytes, nbytes);
+      }
+    }
+    if (++p_s == nslab) {
+      p_s = 0;
+      if (++p_g == kGroups) {
+        p_g = 0;
+        p_sb += nwarps;
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) fetch(i);
+    cp_async_commit();
+  }
+
+  // Consumer state: the accumulators of the row group (kMTiles m16 tiles by
+  // NT query tiles), the sub-block's running maxima, and mult/add of the
+  // group's rows 8 i + g, loaded a group ahead.
+  float acc[kMTiles][NT][4];
+  float best[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    best[nt][0] = best[nt][1] = -INFINITY;
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+  float m[2 * kMTiles], a[2 * kMTiles];
+  auto load_mult_add = [&](long long row0) {
+#pragma unroll
+    for (int i = 0; i < 2 * kMTiles; ++i) {
+      m[i] = mult[row0 + 8 * i + g];
+      a[i] = add[row0 + 8 * i + g];
+    }
+  };
+  long long c_sb = wid;
+  int c_g = 0, c_s = 0, stage = 0;
+  if (total > 0) load_mult_add(c_sb * kSub);
+
+  for (long long it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();  // this lane's copies of slab `it` have landed
+    __syncwarp();                  // ... and every lane's; the stage read last is free
+    if (it + kStages - 1 < total) fetch(stage == 0 ? kStages - 1 : stage - 1);
+    cp_async_commit();
+
+    const uint8_t* st = ring + stage * kStageBytes;
+    const int left = row_bytes - c_s * kRingSlabBytes;  // bytes of the row from this slab on
+    const int nc = left >= kRingSlabBytes ? kSlabChunks : (left + kChunkBytes - 1) / kChunkBytes;
+    for (int c = 0; c < nc; ++c) {
+      // 16 bytes of rows g, g + 8, ... of the group and the matching queries.
+      uint4 rows[2 * kMTiles];
+#pragma unroll
+      for (int i = 0; i < 2 * kMTiles; ++i) {
+        rows[i] = *reinterpret_cast<const uint4*>(
+            st + (8 * i + g) * kRingSlabBytes + (((4 * c + t) ^ ((g & 1) * kSwizzle)) << 4));
+      }
+      uint32_t qw[NT][4 * QV];
+      const uint4* qsrc = qfrag + (c_s * kSlabChunks + c) * QV * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int v = 0; v < QV; ++v) {
+          const uint4 x = qsrc[(nt * nchunks * QV + v) * 32];
+          qw[nt][4 * v] = x.x;
+          qw[nt][4 * v + 1] = x.y;
+          qw[nt][4 * v + 2] = x.z;
+          qw[nt][4 * v + 3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < Op::kSteps; ++j) {
+        uint32_t af[kMTiles][4];
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) Op::a_frag(rows[2 * mt], rows[2 * mt + 1], j, af[mt]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            Op::mma(acc[mt][nt], af[mt], qw[nt][2 * j], qw[nt][2 * j + 1]);
+          }
+        }
+      }
+    }
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    if (++c_s < nslab) continue;
+
+    // The row group is complete: one rounding per score, then the maxima
+    // or the [Q, cap] store (8 consecutive rows of a query per quad row).
+    c_s = 0;
+    const long long row0 = c_sb * kSub + c_g * kGroupRows;
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = __fmaf_rn(acc[mt][nt][e], m[2 * mt + (e >> 1)], a[2 * mt + (e >> 1)]);
+          acc[mt][nt][e] = 0.f;
+        }
+        if constexpr (BMAX) {
+          best[nt][0] = fmaxf(best[nt][0], fmaxf(v[0], v[2]));
+          best[nt][1] = fmaxf(best[nt][1], fmaxf(v[1], v[3]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = nt * kQueryTile + 2 * t + (e & 1);
+            if (q < nq) {
+              const long long o = q * cap + row0 + 16 * mt + 8 * (e >> 1) + g;
+              if (out_bf16) {
+                reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v[e]);
+              } else {
+                reinterpret_cast<float*>(out)[o] = v[e];
+              }
+            }
+          }
+        }
+      }
+    }
+    if (++c_g == kGroups) {
+      if constexpr (BMAX) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = best[nt][e];
+            v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 4));
+            v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 8));
+            v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 16));
+            const int q = nt * kQueryTile + 2 * t + e;
+            if (g == 0 && q < nq) {
+              reinterpret_cast<float*>(out)[q * out_qstride + c_sb * out_bstride] = v;
+            }
+            best[nt][e] = -INFINITY;
+          }
+        }
+      }
+      c_g = 0;
+      c_sb += nwarps;
+    }
+    if (it + 1 < total) load_mult_add(c_sb * kSub + c_g * kGroupRows);
+  }
+}
+
+template <int KIND, bool BMAX, int NT>
+int launch_mma_nt(const Args& a, cudaStream_t stream) {
+  static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
+  static std::mutex smem_mu;
+  const int warps = mma_warps(KIND, NT, a.row_bytes);
+  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mma_query_bytes(KIND, NT, a.row_bytes) + warps * kRingBytes;
+  auto fn = stage1_mma_kernel<KIND, BMAX, NT>;
+  cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);  // the rings alone pass 48 KB
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // A persistent grid: as many CTAs as the card holds at once, or fewer
+  // where the corpus has fewer sub-blocks than that many warps.
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, warps * 32, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const long long want = (a.cap / kSub + warps - 1) / warps;
+  const long long held = static_cast<long long>(sms) * per_sm;
+  const dim3 grid(static_cast<unsigned>(want < held ? want : held));
+  fn<<<grid, warps * 32, smem, stream>>>(
+      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.mult, a.add, a.out,
+      a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, bool BMAX>
+int launch_mma(const Args& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.cap <= 0 || a.cap % kSub != 0 || a.row_bytes % 16 != 0 || a.nq < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.nq <= 1 * kQueryTile) return launch_mma_nt<KIND, BMAX, 1>(a, st);
+  if (a.nq <= 2 * kQueryTile) return launch_mma_nt<KIND, BMAX, 2>(a, st);
+  if (a.nq <= 4 * kQueryTile) return launch_mma_nt<KIND, BMAX, 4>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- s8 queries: exact __dp4a sums on the CUDA cores ------------------------
 
 template <int KIND, bool BMAX, int QT>
 __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
-              const float* __restrict__ qf,       // [nq, d] f32 (float queries)
-              const int8_t* __restrict__ q8,      // [nq, d] s8 (s8 queries)
-              const float* __restrict__ qscale,   // [nq] (s8 queries)
+              const int8_t* __restrict__ q8,      // [nq, d] s8
+              const float* __restrict__ qscale,   // [nq]
               const float* __restrict__ mult, const float* __restrict__ add,
               void* __restrict__ out, int out_bf16, int nq, int d,
               long long cap, long long out_qstride, long long out_bstride) {
+  static_assert(KIND == kS4 || KIND == kS8, "the float-query kinds run on the tensor cores");
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[QT][kThreads / 32];
   uint8_t* tile = smem;
-  uint8_t* qsm = smem + kTileBytes;
+  int8_t* qs8 = reinterpret_cast<int8_t*>(smem + kTileBytes);
 
   const int tid = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * kSub;
   const long long row = row0 + tid;
 
-  // Stage the queries, zero-padded to QT rows.  Float queries are rounded
-  // to bf16 here, as the TPU kernel casts them before the dot.
-  if constexpr (s8_query(KIND)) {
-    int8_t* qs8 = reinterpret_cast<int8_t*>(qsm);
-    for (int i = tid; i < QT * d; i += kThreads) {
-      qs8[i] = (i / d) < nq ? q8[i] : static_cast<int8_t>(0);
-    }
-  } else if constexpr (KIND == kBf16) {
-    float* qsf = reinterpret_cast<float*>(qsm);
-    for (int i = tid; i < QT * d; i += kThreads) {
-      qsf[i] = (i / d) < nq ? __bfloat162float(__float2bfloat16_rn(qf[i])) : 0.f;
-    }
-  } else {
-    __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(qsm);
-    for (int i = tid; i < QT * d; i += kThreads) {
-      qsb[i] = __float2bfloat16_rn((i / d) < nq ? qf[i] : 0.f);
-    }
+  // Stage the queries, zero-padded to QT rows.
+  for (int i = tid; i < QT * d; i += kThreads) {
+    qs8[i] = (i / d) < nq ? q8[i] : static_cast<int8_t>(0);
   }
 
-  float facc[QT];
   int iacc[QT];
 #pragma unroll
-  for (int qi = 0; qi < QT; ++qi) {
-    facc[qi] = 0.f;
-    iacc[qi] = 0;
-  }
+  for (int qi = 0; qi < QT; ++qi) iacc[qi] = 0;
 
   const uint8_t* my = tile + tid * kStride;
   for (int s0 = 0; s0 < row_bytes; s0 += kSlabBytes) {
@@ -133,7 +522,6 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
           hq[k] = __vsub4(((w[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
           lq[k] = __vsub4(w[k] & 0x0F0F0F0Fu, 0x08080808u);
         }
-        const int8_t* qs8 = reinterpret_cast<const int8_t*>(qsm);
 #pragma unroll
         for (int qi = 0; qi < QT; ++qi) {
           const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
@@ -149,10 +537,9 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
           acc = __dp4a(static_cast<int>(lq[3]), b.w, acc);
           iacc[qi] = acc;
         }
-      } else if constexpr (KIND == kS8) {
+      } else {
         // Sixteen s8 dims of the row (byte0..+15) against the same dims of
         // each query: four __dp4a, exact in int32.
-        const int8_t* qs8 = reinterpret_cast<const int8_t*>(qsm);
 #pragma unroll
         for (int qi = 0; qi < QT; ++qi) {
           const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
@@ -162,42 +549,6 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
           acc = __dp4a(static_cast<int>(w[2]), a.z, acc);
           acc = __dp4a(static_cast<int>(w[3]), a.w, acc);
           iacc[qi] = acc;
-        }
-      } else {
-        constexpr int kElems = KIND == kInt8 ? 16 : 8;
-        float x[kElems];
-        if constexpr (KIND == kInt8) {
-          s8x16_to_f32(raw, x);
-        } else {
-          bf16x8_to_f32(raw, x);
-        }
-        const int dim0 = KIND == kInt8 ? byte0 : (byte0 >> 1);
-#pragma unroll
-        for (int qi = 0; qi < QT; ++qi) {
-          float acc = facc[qi];
-          if constexpr (KIND == kBf16) {
-            const float4* qv =
-                reinterpret_cast<const float4*>(reinterpret_cast<const float*>(qsm) + qi * d + dim0);
-#pragma unroll
-            for (int v = 0; v < kElems / 4; ++v) {
-              const float4 t = qv[v];
-              acc = fmaf(x[4 * v], t.x, acc);
-              acc = fmaf(x[4 * v + 1], t.y, acc);
-              acc = fmaf(x[4 * v + 2], t.z, acc);
-              acc = fmaf(x[4 * v + 3], t.w, acc);
-            }
-          } else {
-            const uint4* qv = reinterpret_cast<const uint4*>(
-                reinterpret_cast<const __nv_bfloat16*>(qsm) + qi * d + dim0);
-#pragma unroll
-            for (int v = 0; v < kElems / 8; ++v) {
-              float t[8];
-              bf16x8_to_f32(qv[v], t);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) acc = fmaf(x[8 * v + e], t[e], acc);
-            }
-          }
-          facc[qi] = acc;
         }
       }
     }
@@ -209,13 +560,8 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   const int warp = tid >> 5;
 #pragma unroll
   for (int qi = 0; qi < QT; ++qi) {
-    float v;
-    if constexpr (s8_query(KIND)) {
-      const float qs = qscale[qi < nq ? qi : 0];
-      v = __fmaf_rn(__int2float_rn(iacc[qi]), __fmul_rn(qs, m), a);
-    } else {
-      v = __fmaf_rn(facc[qi], m, a);
-    }
+    const float qs = qscale[qi < nq ? qi : 0];
+    float v = __fmaf_rn(__int2float_rn(iacc[qi]), __fmul_rn(qs, m), a);
     if constexpr (BMAX) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -242,41 +588,19 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   }
 }
 
-struct Args {
-  const void* emb;
-  int row_bytes;
-  const float* qf;
-  const int8_t* q8;
-  const float* qscale;
-  const float* mult;
-  const float* add;
-  void* out;
-  int out_bf16;
-  int nq;
-  int d;
-  long long cap;
-  long long out_qstride;  // block-max store: out[q * out_qstride + b * out_bstride]
-  long long out_bstride;
-};
+// Dynamic shared memory of one CTA: the row tile and QT staged s8 queries.
+size_t dyn_smem(int qt, int d) { return kTileBytes + static_cast<size_t>(qt) * d; }
 
-// Dynamic shared memory of one CTA: the row tile and QT staged queries
-// (s8 for s8 queries, bf16 for float queries over int8 rows, f32 for bf16
-// rows).
-size_t dyn_smem(int kind, int qt, int d) {
-  const int qbytes = s8_query(kind) ? 1 : (kind == kInt8 ? 2 : 4);
-  return kTileBytes + static_cast<size_t>(qt) * d * qbytes;
-}
-
-bool fits(int kind, int qt, int d) {
-  return dyn_smem(kind, qt, d) + sizeof(float) * qt * (kThreads / 32) <= kMaxSmem;
+bool fits(int qt, int d) {
+  return dyn_smem(qt, d) + sizeof(float) * qt * (kThreads / 32) <= kMaxSmem;
 }
 
 template <int KIND, bool BMAX, int QT>
 int launch_qt(const Args& a, cudaStream_t stream) {
   static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
   static std::mutex smem_mu;
-  if (!fits(KIND, QT, a.d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = dyn_smem(KIND, QT, a.d);
+  if (!fits(QT, a.d)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dyn_smem(QT, a.d);
   auto fn = stage1_kernel<KIND, BMAX, QT>;
   if (smem > 48 * 1024) {
     cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);
@@ -284,9 +608,8 @@ int launch_qt(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid(static_cast<unsigned>(a.cap / kSub));
   fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.q8, a.qscale,
-      a.mult, a.add, a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride,
-      a.out_bstride);
+      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.q8, a.qscale, a.mult, a.add,
+      a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -316,7 +639,7 @@ int dewi_scores_matrix(const void* emb, int emb_bf16, const float* q,
                        int out_bf16, int nq, int d, long long cap, void* stream) {
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, out_bf16,
          nq, d, cap, 0, 0};
-  return emb_bf16 ? launch<kBf16, false>(a, stream) : launch<kInt8, false>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, false>(a, stream) : launch_mma<kInt8, false>(a, stream);
 }
 
 // pallas_bmax: as dewi_scores_matrix, out [nq, cap / 128] f32 sub-block maxima.
@@ -325,7 +648,7 @@ int dewi_bmax(const void* emb, int emb_bf16, const float* q, const float* mult,
               void* stream) {
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
          cap, cap / kSub, 1};
-  return emb_bf16 ? launch<kBf16, true>(a, stream) : launch<kInt8, true>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, true>(a, stream) : launch_mma<kInt8, true>(a, stream);
 }
 
 // pallas_bmax_t: as dewi_bmax, corpus-major: the maxima of these nq queries
@@ -336,7 +659,7 @@ int dewi_bmax_t(const void* emb, int emb_bf16, const float* q, const float* mult
   if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
          cap, 1, ldo};
-  return emb_bf16 ? launch<kBf16, true>(a, stream) : launch<kInt8, true>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, true>(a, stream) : launch_mma<kInt8, true>(a, stream);
 }
 
 // pallas_scores_matrix_s8: emb [cap, d] int8, q8 [nq, d] int8, qscale [nq]
@@ -387,11 +710,18 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
 
 // The most queries one launch takes at dim d (a power of two up to 32):
 // the wrappers launch once per group of this many.  kind: 0 int8 rows with
-// float queries, 1 bf16 rows, 2 packed int4 rows, 3 int8 rows with s8
-// queries.  0 when not even one query fits.
+// float queries, 1 bf16 rows (both in whole tiles of 8 queries), 2 packed
+// int4 rows, 3 int8 rows with s8 queries.  0 when not even one query (or
+// one tile) fits.
 int dewi_queries_per_launch(int kind, int d) {
+  if (kind == kInt8 || kind == kBf16) {
+    for (int nt = 4; nt >= 1; nt >>= 1) {
+      if (mma_warps(kind, nt, d * (kind == kBf16 ? 2 : 1)) > 0) return nt * kQueryTile;
+    }
+    return 0;
+  }
   for (int qt = 32; qt >= 1; qt >>= 1) {
-    if (fits(kind, qt, d)) return qt;
+    if (fits(qt, d)) return qt;
   }
   return 0;
 }

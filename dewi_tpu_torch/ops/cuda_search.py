@@ -20,6 +20,18 @@ wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from     
 ``int8_stream_search``  ``pallas_int8_search`` :239             the same, over the int8 codes    292.0 MB
 ======================  ======================================  ===============================  ============
 
+The three float-query kernels (``bmax``, ``scores_matrix``, ``bmax_t``;
+int8 or bf16 rows) compute their product on the tensor cores:
+``mma.sync`` m16n8k16 in bf16 with f32 sums, the rows as the 16-row
+operand and the queries in tiles of 8 columns, each warp a persistent
+worker that walks whole 128-row sub-blocks behind its own double-buffered
+``cp.async`` ring of 32 rows x 256 bytes, int8 rows widened to bf16
+exactly by a byte permute, two masks and a packed subtract.  With the
+product there they are bound by device-memory bytes at every Q <= 32, and
+one code path serves every Q, so a score does not depend on how many
+queries ride with it.  The s8-query kernels (s8 and s4 kinds) keep exact
+``__dp4a`` sums on the CUDA cores, one thread per corpus row.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  On a CUDA tensor it launches its kernel on the current
 stream of the tensor's device (built at first use, see ``_build.py``),
@@ -33,11 +45,11 @@ wrappers (``*_t``) return ``[cap/128, Q]``, the transpose of their
 query-major twins.  The two streaming searches return ``[Q, k]`` scores
 and row ids and read only the live rows.
 
-Bound on an H100 (3.35 TB/s): all ten are memory-bound at Q <= 32.  The
-last column is what each moves at 1M x 256 (int8 or packed int4 rows,
-bf16 rows for ``scores_matrix``, f32 rows for ``stream_search``; 1,000,000
-live rows for the streaming searches), Q=1: 42.6, 43.8, 82.6, 164, 82.6,
-83.9, 82.6, 82.6, 315 and 87.2 us.
+Bound on an H100 (3.35 TB/s): the least time of all ten at Q <= 32 is
+that of their bytes.  The last column is what each moves at 1M x 256
+(int8 or packed int4 rows, bf16 rows for ``scores_matrix``, f32 rows for
+``stream_search``; 1,000,000 live rows for the streaming searches), Q=1:
+42.6, 43.8, 82.6, 164, 82.6, 83.9, 82.6, 82.6, 315 and 87.2 us.
 
 torch has no integer matmul on the CPU, so the plain versions compute the
 integer dots from the integer values in floating point: the s8 x s4 dot in
@@ -322,7 +334,7 @@ def scores_matrix(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
 
     ``adj = (bf16(q) . row) * mult + add``.  Replaces ``pallas_scores_matrix``
     (dewi_tpu/ops/pallas_search.py:309).  Bound: bytes (corpus + mult/add
-    read, ``[Q, cap]`` written).
+    read, ``[Q, cap]`` written); the product runs on the tensor cores.
     """
     name = "scores_matrix"
     _check_common(name, emb, mult, add, queries.shape[0], queries)
@@ -348,7 +360,8 @@ def bmax(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     """Fused stage 1 + 128-row block max: ``[Q, cap/128]`` f32.
 
     Replaces ``pallas_bmax`` (dewi_tpu/ops/pallas_search.py:559).  Bound:
-    bytes (corpus + mult/add read; only the maxima are written).
+    bytes (corpus + mult/add read; only the maxima are written); the
+    product runs on the tensor cores and the maxima never leave registers.
     """
     name = "bmax"
     _check_common(name, emb, mult, add, queries.shape[0], queries)
@@ -501,6 +514,8 @@ def bmax_t(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
 
     Replaces ``pallas_bmax_t`` (dewi_tpu/ops/pallas_search.py:740), taken
     where the stream block is not a multiple of 16384 rows.  Bound: bytes.
+    The same kernel as :func:`bmax` with other store strides, so equal to
+    it transposed bit for bit.
     """
     name = "bmax_t"
     _check_common(name, emb, mult, add, queries.shape[0], queries)

@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Time the float-query stage-1 kernels of ``dewi_tpu_torch`` over Q.
+
+    python3 scripts/torch_stage1_sweep.py [--root DIR] [--errors] [--no-check]
+
+On one CUDA card, at cap 2^20 x 256: ``bmax``, ``bmax_t`` and
+``scores_matrix`` over int8 and bf16 rows at Q 1, 2, 4, 8, 16 and 32
+(CUDA-event medians of 50, ``chip_smoke.stage1_sweep``), after holding each
+against its plain version.  ``--root DIR`` takes the package from another
+checkout (``DIR/dewi_tpu_torch``), so that two versions of the kernels can
+be timed in turns on the same card: run parent, change, change, parent.
+``--errors`` also prints, at cap 16,384 and D 64, 256, 2048 and 8192 with
+32 queries, the largest |kernel - plain| of ``scores_matrix`` and how far
+that is from the tolerance of the checks (rtol 1e-5 plus 1e-5 of the
+largest |plain|; 1.0 would be at the limit).  ``--no-check`` times without
+the comparison (for a kernel deliberately altered to find what it costs).
+Prints the card and one JSON
+line per row.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--no-check", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from dewi_tpu_torch.ops import _build
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    _build.load_library()
+    print(json.dumps({"root": str(Path(args.root).resolve()),
+                      "nvcc_seconds": _build.build_seconds}), flush=True)
+
+    x = smoke.kernel_inputs(1 << 20, 256, 32, seed=0)
+    for emb, mult in ((x["e8"], x["m8"]), (x["ebf"], x["mbf"])):
+        for nq in () if args.no_check else smoke.SWEEP_Q:
+            q = x["q"][:nq].contiguous()
+            smoke.compare(cs.bmax(emb, mult, x["add"], q),
+                          cs.bmax_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
+            smoke.compare(cs.scores_matrix(emb, mult, x["add"], q),
+                          cs.scores_matrix_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
+    for key, row in smoke.stage1_sweep(x).items():
+        print(json.dumps({"sweep": key, "ms_by_q": row}), flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    if args.errors:
+        for d in (64, 256, 2048, 8192):
+            x = smoke.kernel_inputs(16384, d, 32, seed=d)
+            for rows, emb, mult in (("int8", x["e8"], x["m8"]), ("bf16", x["ebf"], x["mbf"])):
+                got = cs.scores_matrix(emb, mult, x["add"], x["q"])
+                want = cs.scores_matrix_plain(emb, mult, x["add"], x["q"])
+                torch.cuda.synchronize()
+                fin = torch.isfinite(want)
+                err = (got - want).abs()[fin]
+                lim = 1e-5 * want.abs()[fin] + 1e-5 * want.abs()[fin].max()
+                print(json.dumps({"errors": rows, "D": d, "max_abs_err": float(err.max()),
+                                  "max_abs_plain": float(want.abs()[fin].max()),
+                                  "share_of_tolerance": float((err / lim).max())}),
+                      flush=True)
+            del x
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

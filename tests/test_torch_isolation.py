@@ -54,7 +54,7 @@ def test_import_builds_nothing():
 def test_new_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"dewi_tpu_torch/ops/kmeans.py", "dewi_tpu_torch/index/ivf.py",
-            "scripts/torch_stream_chunks.py"} <= names
+            "scripts/torch_stream_chunks.py", "scripts/torch_stage1_sweep.py"} <= names
 
 
 def test_ivf_defaults_to_the_card():

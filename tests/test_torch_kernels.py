@@ -8,7 +8,11 @@ kernels bit for bit (the integer accumulator is exact, the f32 epilogue is
 the same fused association); bf16-dot kernels, the corpus-major ``bmax_t``
 included, rtol 1e-5 and atol 1e-5 of the largest |score| (only the order
 of the f32 sum differs, and its rounding scales with the terms).  The
-quantizers must match bit for bit.
+quantizers must match bit for bit.  The float-query kernels are also held
+at the shapes their tensor-core tiling makes special: 7, 8, 9, 17 and 33
+queries (around the 8-query tiles and the 32-query launch), dims 16, 48
+and, for bf16 rows, 264 (a multiple of 8 but not of 16), over three
+sub-blocks of which the last is all padding.
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
 and skip without a card.  They import no JAX, so on the card they run
@@ -36,21 +40,32 @@ def jx():
     return jnp, pallas_search, quantized
 
 
-def _inputs(nq, seed, bf16_corpus=False):
+def _inputs(nq, seed, bf16_corpus=False, cap=CAP, d=D):
+    """At another ``cap`` than the default the last 150 rows are padding: a
+    whole 128-row sub-block of ``-inf`` and part of the one before."""
     rng = np.random.default_rng(seed)
     if bf16_corpus:
-        emb = rng.normal(size=(CAP, D)).astype(np.float32)
+        emb = rng.normal(size=(cap, d)).astype(np.float32)
     else:
-        emb = rng.integers(-127, 128, size=(CAP, D)).astype(np.int8)
-    vals = rng.integers(-7, 8, size=(CAP, D)).astype(np.int8)
-    packed = (vals[:, : D // 2] * 16 + (vals[:, D // 2:] + 8)).astype(np.int8)
-    mult = rng.uniform(0.5, 1.5, size=CAP).astype(np.float32)
-    add = rng.normal(size=CAP).astype(np.float32)
-    add[N_LIVE:] = -np.inf
-    q = rng.normal(size=(nq, D)).astype(np.float32)
-    q8 = rng.integers(-127, 128, size=(nq, D)).astype(np.int8)
+        emb = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
+    vals = rng.integers(-7, 8, size=(cap, d)).astype(np.int8)
+    packed = (vals[:, : d // 2] * 16 + (vals[:, d // 2:] + 8)).astype(np.int8)
+    mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
+    add = rng.normal(size=cap).astype(np.float32)
+    add[N_LIVE if cap == CAP else cap - 150:] = -np.inf
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    q8 = rng.integers(-127, 128, size=(nq, d)).astype(np.int8)
     qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
     return emb, packed, mult, add, q, q8, qs
+
+
+# Shapes the tensor-core tiling of the float-query kernels makes special:
+# (queries, dim, bf16 rows).  Dim 264 is a multiple of 8 and not of 16, which
+# only bf16 rows may have.
+TILE_EDGE_SHAPES = ([(nq, d, bf) for nq in (7, 8, 9, 17, 33) for d in (16, 48)
+                     for bf in (False, True)]
+                    + [(nq, 264, True) for nq in (7, 8, 9, 17, 33)])
+TILE_EDGE_CAP = 384  # three sub-blocks, walked in one block by the Pallas functions
 
 
 def _corpus_pair(jnp, emb, bf16_corpus):
@@ -111,6 +126,17 @@ class TestPlainVsPallas:
         port = cs.bmax(te, T(mult), T(add), T(q))
         _assert_match(port, ref, rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("nq,d,bf16_corpus", TILE_EDGE_SHAPES)
+    def test_bmax_tile_edges(self, jx, nq, d, bf16_corpus):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 40, bf16_corpus, cap=TILE_EDGE_CAP, d=d)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_bmax(je, jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q),
+                             block=TILE_EDGE_CAP, interpret=True)
+        port = cs.bmax(te, T(mult), T(add), T(q))
+        assert tuple(port.shape) == (nq, 3) and bool(torch.isneginf(port[:, 2]).all())
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
     @pytest.mark.parametrize("nq", [1, 5, 32])
     @pytest.mark.parametrize("bf16_corpus", [False, True])
     def test_scores_matrix(self, jx, nq, bf16_corpus):
@@ -119,6 +145,16 @@ class TestPlainVsPallas:
         je, te = _corpus_pair(jnp, emb, bf16_corpus)
         ref = ps.pallas_scores_matrix(je, jnp.asarray(mult), jnp.asarray(add),
                                       jnp.asarray(q), block=1024, interpret=True)
+        port = cs.scores_matrix(te, T(mult), T(add), T(q))
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("nq,d,bf16_corpus", TILE_EDGE_SHAPES)
+    def test_scores_matrix_tile_edges(self, jx, nq, d, bf16_corpus):
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 41, bf16_corpus, cap=TILE_EDGE_CAP, d=d)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_scores_matrix(je, jnp.asarray(mult), jnp.asarray(add),
+                                      jnp.asarray(q), block=TILE_EDGE_CAP, interpret=True)
         port = cs.scores_matrix(te, T(mult), T(add), T(q))
         _assert_match(port, ref, rtol=1e-5, atol=1e-5)
 
@@ -168,6 +204,20 @@ class TestPlainVsPallas:
         port = cs.bmax_t(te, T(mult), T(add), T(q))
         assert tuple(port.shape) == (CAP // 128, nq)
         _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("nq,d,bf16_corpus", TILE_EDGE_SHAPES)
+    def test_bmax_t_tile_edges(self, jx, nq, d, bf16_corpus):
+        """``pallas_bmax_t`` walks blocks of a multiple of 1024 rows, so its
+        smallest corpus is 1024 rows (eight sub-blocks, the last all padding)."""
+        jnp, ps, _ = jx
+        emb, _, mult, add, q, _, _ = _inputs(nq, 42, bf16_corpus, cap=1024, d=d)
+        je, te = _corpus_pair(jnp, emb, bf16_corpus)
+        ref = ps.pallas_bmax_t(je, jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q),
+                               block=1024, interpret=True)
+        port = cs.bmax_t(te, T(mult), T(add), T(q))
+        assert tuple(port.shape) == (8, nq) and bool(torch.isneginf(port[7]).all())
+        _assert_match(port, ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(port, cs.bmax(te, T(mult), T(add), T(q)).T)
 
     @pytest.mark.parametrize("nq", [1, 5, 32])
     def test_bmax_s8_t(self, jx, nq):
@@ -304,34 +354,70 @@ def test_card_scores_matrix_s4(cuda_device, nq):
     _card_match(got, cs.scores_matrix_s4_plain(p4, mult, add, q8, qs), rtol=0, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32])
-def test_card_bmax(cuda_device, nq):
-    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=nq)
-    for emb in (e8, ebf):
-        _card_match(cs.bmax(emb, mult, add, q), cs.bmax_plain(emb, mult, add, q),
-                    rtol=1e-5, atol=1e-5)
+# (queries, dim, capacity) for the float-query kernels on the card: the
+# ragged main shapes, the tile edges of the CPU tests and two wide dims.
+CARD_FLOAT_SHAPES = ([(nq, 64, 65536) for nq in (1, 5, 32)]
+                     + [(nq, d, TILE_EDGE_CAP) for nq in (7, 8, 9, 17, 33)
+                        for d in (16, 48, 264)]
+                     + [(33, 2048, 4096), (9, 8192, 4096)])
+
+
+def _float_corpora(e8, ebf):
+    """int8 rows need a dim that is a multiple of 16, bf16 rows of 8."""
+    return (e8, ebf) if e8.shape[1] % 16 == 0 else (ebf,)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32])
-def test_card_scores_matrix(cuda_device, nq):
-    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=nq)
+@pytest.mark.parametrize("nq,d,cap", CARD_FLOAT_SHAPES)
+def test_card_bmax(cuda_device, nq, d, cap):
+    """The last 200 rows are padding (``add = -inf``), so the last
+    sub-block's maximum must be ``-inf`` itself, not NaN."""
+    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, cap=cap, d=d, nq=nq)
+    for emb in _float_corpora(e8, ebf):
+        got = cs.bmax(emb, mult, add, q)
+        assert bool(torch.isneginf(got[:, -1]).all())
+        _card_match(got, cs.bmax_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d,cap", CARD_FLOAT_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_card_scores_matrix(cuda_device, nq, d, cap, out_dtype):
+    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, cap=cap, d=d, nq=nq)
+    # bf16 out: the f32 scores may differ in the last bits before rounding,
+    # which can move a score by one bf16 ulp.
+    rtol = 1e-5 if out_dtype == torch.float32 else 2 ** -7
+    for emb in _float_corpora(e8, ebf):
+        got = cs.scores_matrix(emb, mult, add, q, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        _card_match(got, cs.scores_matrix_plain(emb, mult, add, q, out_dtype),
+                    rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_card_score_independent_of_batch(cuda_device):
+    """One code path serves every Q, so a query's stage-1 score is the same
+    bit for bit whether it rides alone, in a tile of 8 or in a full launch."""
+    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=32)
     for emb in (e8, ebf):
-        _card_match(cs.scores_matrix(emb, mult, add, q),
-                    cs.scores_matrix_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
+        full = cs.scores_matrix(emb, mult, add, q)
+        for nq in (1, 8, 9):
+            assert torch.equal(cs.scores_matrix(emb, mult, add, q[:nq].contiguous()), full[:nq])
+        assert torch.equal(cs.bmax(emb, mult, add, q[:1].contiguous()),
+                           cs.bmax(emb, mult, add, q)[:1])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,nq,groups", [
     # (dim, queries, queries per launch over int8 rows, bf16 rows, int4 rows)
-    (2048, 32, (32, 16, 32)),
-    (2048, 40, (32, 16, 32)),
-    (8192, 20, (8, 4, 16)),
+    (2048, 32, (32, 32, 32)),
+    (2048, 40, (32, 32, 32)),
+    (8192, 20, (8, 8, 16)),
 ])
 def test_card_wide_dim(cuda_device, d, nq, groups):
     """Wide dims: the staged queries must fit in shared memory, so past
-    some dim a launch takes fewer than 32 queries."""
+    some dim a launch takes fewer than 32 queries (the float-query kernels
+    stage bf16 queries in whole tiles of 8 for either row type)."""
     e8, ebf, p4, mult, add, q, q8, qs = _card_inputs(cuda_device, cap=4096, d=d, nq=nq)
     g_int8, g_bf16, g_s4 = groups
     for emb, g in ((e8, g_int8), (ebf, g_bf16)):
@@ -372,17 +458,20 @@ def test_card_scores_matrix_s8(cuda_device, nq, out_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32, 40])
-def test_card_corpus_major(cuda_device, nq):
+@pytest.mark.parametrize("nq,d,cap", [(nq, 64, 65536) for nq in (1, 5, 32, 40)]
+                         + CARD_FLOAT_SHAPES[3:])
+def test_card_corpus_major(cuda_device, nq, d, cap):
     """The ``*_t`` kernels: their plain versions, and bit for bit the
     query-major kernels transposed (a group of 32 writes its columns)."""
-    e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, nq=nq)
-    got = cs.bmax_s8_t(e8, mult, add, q8, qs)
-    assert tuple(got.shape) == (e8.shape[0] // 128, nq)
-    _card_match(got, cs.bmax_s8_t_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
-    assert torch.equal(got, cs.bmax_s8(e8, mult, add, q8, qs).T)
-    for emb in (e8, ebf):
+    e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, cap=cap, d=d, nq=nq)
+    if d % 16 == 0:
+        got = cs.bmax_s8_t(e8, mult, add, q8, qs)
+        assert tuple(got.shape) == (e8.shape[0] // 128, nq)
+        _card_match(got, cs.bmax_s8_t_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
+        assert torch.equal(got, cs.bmax_s8(e8, mult, add, q8, qs).T)
+    for emb in _float_corpora(e8, ebf):
         got = cs.bmax_t(emb, mult, add, q)
+        assert bool(torch.isneginf(got[-1]).all())
         _card_match(got, cs.bmax_t_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
         assert torch.equal(got, cs.bmax(emb, mult, add, q).T)
 
