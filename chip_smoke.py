@@ -14,10 +14,12 @@ public entry points:
    (cap 16,384, D 2048, Q 40, which takes two launches), with their times
    beside their bounds at Q 1 and 32; the s8 kernels must match bit for
    bit, and the corpus-major kernels must equal the query-major ones
-   transposed.  The tensor-core kernels (``bmax``, ``bmax_t``,
-   ``scores_matrix``) are also timed at Q 1, 2, 4, 8, 16 and 32 over int8
-   and bf16 rows, and ``scores_matrix`` with bf16 output beside the same
-   ``torch.matmul``.  The
+   transposed.  The six tensor-core kernels are also timed at Q 1, 2, 4,
+   8, 16 and 32, each time beside its bound (``bmax``, ``bmax_t`` and
+   ``scores_matrix`` over int8 and bf16 rows, ``bmax_s8``, ``bmax_s8_t``
+   and ``scores_matrix_s8`` over int8 rows), and at Q=32 ``scores_matrix``
+   and ``scores_matrix_s8`` with bf16 output beside ``torch.matmul`` and
+   ``torch._int_mm`` of the same operands.  The
    two streaming searches at cap 65,536 x 64 and at 2^20 x 256 with
    1,000,000 live rows, Q 1, 8 and 40 (two launches), k 10, and with fewer
    live rows than k: scores within 1e-5, ids equal where scores differ;
@@ -96,7 +98,7 @@ REPLACES = {
     "int8_stream_search": "dewi_tpu/ops/pallas_search.py:239",
 }
 STREAM_KERNELS = ("stream_search", "int8_stream_search")
-SWEEP_Q = (1, 2, 4, 8, 16, 32)   # query counts of the float-query kernels' sweep
+SWEEP_Q = (1, 2, 4, 8, 16, 32)   # query counts of the tensor-core kernels' sweep
 N_LIVE = 1_000_000          # live rows of the streaming kernels' main shape
 # IVF on unclustered data is not a >= 0.99 tier in general (the reference's
 # own recall curve says so).  On this corpus the re-rank terms lead the
@@ -163,6 +165,22 @@ def kernel_inputs(cap: int, d: int, nq: int, seed: int) -> dict:
                 add=add)
 
 
+def stage1_cost(cap: int, d: int, nq: int, row_bytes: int, s8_queries: bool,
+                out_bytes: int) -> tuple:
+    """(bytes, operations, ops peak) of a stage-1 call: the rows, mult and
+    add read once, the queries (f32, or s8 with an f32 scale each) read
+    once, ``out_bytes`` written once; 2 operations per query and element."""
+    q_bytes = nq * d + 4 * nq if s8_queries else 4 * nq * d
+    return (cap * row_bytes + 8 * cap + q_bytes + out_bytes, 2.0 * nq * cap * d,
+            INT8_OPS_PER_S if s8_queries else BF16_OPS_PER_S)
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple:
+    """The least time in ms of that work on this card, and what sets it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
 def kernel_cases(x: dict) -> dict:
     """kernel name -> (kernel call, plain call, library call or None, rtol,
     atol fraction of max |ref|, bytes moved, operations, ops peak).
@@ -175,50 +193,42 @@ def kernel_cases(x: dict) -> dict:
 
     cap, d = x["e8"].shape
     nq = x["q"].shape[0]
-    f4 = 4 * cap  # mult + add, f32 each
     qbf, ebf_t = x["q"].to(torch.bfloat16), x["ebf"].T
     e8bf = x["e8"].to(torch.bfloat16)
     e8bf_t = e8bf.T
     q8_pad = torch.zeros((max(32, -(-nq // 8) * 8), d), dtype=torch.int8, device="cuda")
     q8_pad[:nq] = x["q8"]
-    ops = 2.0 * nq * cap * d
     s8 = (x["e8"], x["m8"], x["add"], x["q8"], x["qs"])
-    s8_bytes = cap * d + 2 * f4 + nq * d + 4 * nq
+    s4 = (x["p4"], x["m4"], x["add"], x["q8"], x["qs"])
+    bmax_out, full_out = 4 * nq * cap // 128, 4 * nq * cap
     return {
         "bmax_s8": (lambda: cs.bmax_s8(*s8), lambda: cs.bmax_s8_plain(*s8),
                     lambda: torch._int_mm(q8_pad, x["e8"].T), 0.0, 0.0,
-                    s8_bytes + 4 * nq * cap // 128, ops, INT8_OPS_PER_S),
+                    *stage1_cost(cap, d, nq, d, True, bmax_out)),
         "scores_matrix_s8": (lambda: cs.scores_matrix_s8(*s8),
                              lambda: cs.scores_matrix_s8_plain(*s8),
                              lambda: torch._int_mm(q8_pad, x["e8"].T), 0.0, 0.0,
-                             s8_bytes + 4 * nq * cap, ops, INT8_OPS_PER_S),
+                             *stage1_cost(cap, d, nq, d, True, full_out)),
         "bmax_t": (lambda: cs.bmax_t(x["e8"], x["m8"], x["add"], x["q"]),
                    lambda: cs.bmax_t_plain(x["e8"], x["m8"], x["add"], x["q"]),
                    lambda: torch.matmul(e8bf, qbf.T), 1e-5, 1e-5,
-                   cap * d + 2 * f4 + 4 * nq * d + 4 * nq * cap // 128, ops,
-                   BF16_OPS_PER_S),
+                   *stage1_cost(cap, d, nq, d, False, bmax_out)),
         "bmax_s8_t": (lambda: cs.bmax_s8_t(*s8), lambda: cs.bmax_s8_t_plain(*s8),
                       lambda: torch._int_mm(x["e8"], q8_pad.T), 0.0, 0.0,
-                      s8_bytes + 4 * nq * cap // 128, ops, INT8_OPS_PER_S),
-        "bmax_s4": (lambda: cs.bmax_s4(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
-                    lambda: cs.bmax_s4_plain(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
-                    None, 1e-6, 0.0,
-                    cap * d // 2 + 2 * f4 + nq * d + 4 * nq + 4 * nq * cap // 128,
-                    ops, INT8_OPS_PER_S),
-        "scores_matrix_s4": (
-            lambda: cs.scores_matrix_s4(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
-            lambda: cs.scores_matrix_s4_plain(x["p4"], x["m4"], x["add"], x["q8"], x["qs"]),
-            None, 1e-6, 0.0, cap * d // 2 + 2 * f4 + nq * d + 4 * nq + 4 * nq * cap,
-            ops, INT8_OPS_PER_S),
+                      *stage1_cost(cap, d, nq, d, True, bmax_out)),
+        "bmax_s4": (lambda: cs.bmax_s4(*s4), lambda: cs.bmax_s4_plain(*s4), None, 1e-6, 0.0,
+                    *stage1_cost(cap, d, nq, d // 2, True, bmax_out)),
+        "scores_matrix_s4": (lambda: cs.scores_matrix_s4(*s4),
+                             lambda: cs.scores_matrix_s4_plain(*s4), None, 1e-6, 0.0,
+                             *stage1_cost(cap, d, nq, d // 2, True, full_out)),
         "bmax": (lambda: cs.bmax(x["e8"], x["m8"], x["add"], x["q"]),
                  lambda: cs.bmax_plain(x["e8"], x["m8"], x["add"], x["q"]),
                  lambda: torch.matmul(qbf, e8bf_t), 1e-5, 1e-5,
-                 cap * d + 2 * f4 + 4 * nq * d + 4 * nq * cap // 128, ops, BF16_OPS_PER_S),
+                 *stage1_cost(cap, d, nq, d, False, bmax_out)),
         "scores_matrix": (lambda: cs.scores_matrix(x["ebf"], x["mbf"], x["add"], x["q"]),
                           lambda: cs.scores_matrix_plain(x["ebf"], x["mbf"], x["add"], x["q"]),
                           lambda: torch.matmul(qbf, ebf_t), 1e-5, 1e-5,
-                          2 * cap * d + 2 * f4 + 4 * nq * d + 4 * nq * cap, ops,
-                          BF16_OPS_PER_S),
+                          *stage1_cost(cap, d, nq, 2 * d, False, full_out)),
     }
 
 
@@ -235,34 +245,55 @@ def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_frac: float
 
 
 def stage1_sweep(x: dict, reps: int = 50) -> dict:
-    """The tensor-core kernels (``bmax``, ``bmax_t``, ``scores_matrix``) over
-    the int8 and the bf16 rows of ``x`` at each Q of ``SWEEP_Q``: CUDA-event
-    medians in ms, keyed ``kernel/rows`` then Q.  At the largest Q also
-    ``scores_matrix`` over bf16 rows with ``out_dtype=torch.bfloat16``
-    beside ``torch.matmul`` of the same bf16 operands (which writes the same
-    bf16 ``[Q, cap]``), and the least time of that call's bytes."""
+    """The six tensor-core kernels at each Q of ``SWEEP_Q``: ``bmax``,
+    ``bmax_t`` and ``scores_matrix`` over the int8 and the bf16 rows of
+    ``x``, ``bmax_s8``, ``bmax_s8_t`` and ``scores_matrix_s8`` over its int8
+    rows.  Keyed ``kernel/rows``, each ``{"ms": {Q: CUDA-event median},
+    "bound_ms": {Q: least time}}``.  At the largest Q also ``scores_matrix``
+    over bf16 rows and ``scores_matrix_s8`` with ``out_dtype=torch.bfloat16``
+    beside ``torch.matmul`` and ``torch._int_mm`` of the same operands (the
+    one writes the same bf16 ``[Q, cap]``, the other int32)."""
     from dewi_tpu_torch.ops import cuda_search as cs
 
-    corpora = {"int8": (x["e8"], x["m8"]), "bf16": (x["ebf"], x["mbf"])}
+    cap, d = x["e8"].shape
+    add = x["add"]
     out: dict = {}
-    for name, fn in (("bmax", cs.bmax), ("bmax_t", cs.bmax_t),
-                     ("scores_matrix", cs.scores_matrix)):
-        for rows, (emb, mult) in corpora.items():
-            row = out[f"{name}/{rows}"] = {}
-            for nq in SWEEP_Q:
-                q = x["q"][:nq].contiguous()
-                row[nq] = time_device_ms(lambda: fn(emb, mult, x["add"], q), reps, 400_000)
-    nq = SWEEP_Q[-1]
-    q = x["q"][:nq].contiguous()
-    qbf, ebf_t = q.to(torch.bfloat16), x["ebf"].T
-    cap, d = x["ebf"].shape
-    out["scores_matrix/bf16/bf16_out"] = {nq: time_device_ms(
-        lambda: cs.scores_matrix(x["ebf"], x["mbf"], x["add"], q, out_dtype=torch.bfloat16),
-        reps, 400_000)}
-    out["torch.matmul/bf16/bf16_out"] = {nq: time_device_ms(
-        lambda: torch.matmul(qbf, ebf_t), reps, 400_000)}
-    out["bound/bf16/bf16_out"] = {
-        nq: (2 * cap * d + 8 * cap + 4 * nq * d + 2 * nq * cap) / HBM_BYTES_PER_S * 1e3}
+
+    def sweep(key: str, call, row_bytes: int, s8: bool, out_bytes_per_query: int,
+              nqs=SWEEP_Q) -> None:
+        row = out[key] = {"ms": {}, "bound_ms": {}}
+        for nq in nqs:
+            row["ms"][nq] = time_device_ms(lambda: call(nq), reps, 400_000)
+            row["bound_ms"][nq] = bound(*stage1_cost(cap, d, nq, row_bytes, s8,
+                                                     nq * out_bytes_per_query))[0]
+
+    qf = {nq: x["q"][:nq].contiguous() for nq in SWEEP_Q}
+    q8 = {nq: (x["q8"][:nq].contiguous(), x["qs"][:nq].contiguous()) for nq in SWEEP_Q}
+    corpora = {"int8": (x["e8"], x["m8"], d), "bf16": (x["ebf"], x["mbf"], 2 * d)}
+    for name, fn, per_q in (("bmax", cs.bmax, 4 * cap // 128),
+                            ("bmax_t", cs.bmax_t, 4 * cap // 128),
+                            ("scores_matrix", cs.scores_matrix, 4 * cap)):
+        for rows, (emb, mult, row_bytes) in corpora.items():
+            sweep(f"{name}/{rows}", lambda nq: fn(emb, mult, add, qf[nq]), row_bytes, False,
+                  per_q)
+    for name, fn, per_q in (("bmax_s8", cs.bmax_s8, 4 * cap // 128),
+                            ("bmax_s8_t", cs.bmax_s8_t, 4 * cap // 128),
+                            ("scores_matrix_s8", cs.scores_matrix_s8, 4 * cap)):
+        sweep(f"{name}/int8", lambda nq: fn(x["e8"], x["m8"], add, *q8[nq]), d, True, per_q)
+
+    last = SWEEP_Q[-1:]
+    qbf, ebf_t = qf[last[0]].to(torch.bfloat16), x["ebf"].T
+    bf16 = torch.bfloat16
+    sweep("scores_matrix/bf16/bf16_out",
+          lambda nq: cs.scores_matrix(x["ebf"], x["mbf"], add, qf[nq], out_dtype=bf16),
+          2 * d, False, 2 * cap, last)
+    sweep("torch.matmul/bf16/bf16_out", lambda nq: torch.matmul(qbf, ebf_t), 2 * d, False,
+          2 * cap, last)
+    sweep("scores_matrix_s8/int8/bf16_out",
+          lambda nq: cs.scores_matrix_s8(x["e8"], x["m8"], add, *q8[nq], out_dtype=bf16),
+          d, True, 2 * cap, last)
+    sweep("torch._int_mm/int8/int32_out", lambda nq: torch._int_mm(q8[nq][0], x["e8"].T),
+          d, True, 4 * cap, last)
     return out
 
 
@@ -289,8 +320,7 @@ def phase_kernels() -> dict:
             ms = time_device_ms(kern, reps=50, lead_cycles=400_000)
             plain_ms = time_device_ms(plain, reps=10)
             lib_ms = time_device_ms(lib, reps=50, lead_cycles=400_000) if lib else None
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-            bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+            bound_ms, bound_by = bound(nbytes, ops, peak)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms, bytes=nbytes, rtol=rtol, atol_of_max=atol)
             log(f"kernel {name} cap={cap} D={d} Q={nq}: " + json.dumps(row))
@@ -301,7 +331,7 @@ def phase_kernels() -> dict:
                            q32_bound_by=bound_by, q32_library_ms=lib_ms)
         if (cap, nq) == (1 << 20, SWEEP_Q[-1]):
             for key, row in stage1_sweep(x).items():
-                log(f"sweep {key} cap={cap} D={d} ms by Q: " + json.dumps(row))
+                log(f"sweep {key} cap={cap} D={d} ms and bound by Q: " + json.dumps(row))
         del x
         torch.cuda.empty_cache()
     log("kernel max_abs_err vs plain (all shapes; tolerance rtol + atol_of_max x max|plain|): " +
@@ -405,9 +435,8 @@ def phase_stream_kernels() -> dict:
             ms = time_device_ms(kern, reps=50, lead_cycles=400_000)
             plain_ms = time_device_ms(plain, reps=5)
             lib_ms = time_device_ms(lib, reps=50, lead_cycles=400_000)
-            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops) * 1e3,
-                       bound_by="bytes" if by_bytes >= by_ops else "operations",
+            bound_ms, bound_by = bound(nbytes, ops, peak)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms, bytes=nbytes, queries=nq, rtol=1e-5, atol=1e-5)
             log(f"kernel {name} cap={cap} D={d} Q={nq} live={n_valid} k={k}: "
                 + json.dumps(row))

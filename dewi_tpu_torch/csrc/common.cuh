@@ -80,6 +80,22 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// D += A * B on the tensor cores in exact integers: A 16x32 s8 (row-major
+// fragments), B 32x8 s8, D 16x8 s32.  The lanes own what they own in
+// mma_bf16_16816, four s8 to a register where that has two bf16: a[0] =
+// A[g][4t .. 4t+3], a[1] = A[g+8][4t .. 4t+3], a[2] = A[g][4t+16 .. 4t+19],
+// a[3] = A[g+8][4t+16 .. 4t+19]; b0 = B[4t .. 4t+3][g], b1 = B[4t+16 ..
+// 4t+19][g]; c as there.  No .satfinite: the s32 sum wraps as JAX's int32
+// dot does, and |acc| <= 127 * 128 * D cannot overflow below D = 2^17.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Four s8 values (one word) to two bf16 pairs, exactly: lo = {v0, v1},
 // hi = {v2, v3}.  A permute puts 0x43 above each byte b.  With bit 7 of b
 // cleared that half reads as the bf16 128 + (b & 127); with the low seven

@@ -25,8 +25,9 @@
 //   * float queries over int8 or bf16 rows: sum_d bf16(q[d]) * row[d] in
 //     f32.  Both operands are bf16-exact, so every product is exact in f32
 //     and only the order of the sum differs from the TPU kernel;
-//   * s8 queries over int8 rows: the exact int32 sum of s8 x s8, by __dp4a
-//     over the quads of the query and the row as they are stored;
+//   * s8 queries over int8 rows: the exact int32 sum of s8 x s8, on the
+//     tensor cores (mma m16n8k32 s8 x s8 -> s32) over the bytes of the
+//     query and the row as they are stored;
 //   * s8 queries over nibble-packed int4 rows: the exact int32 sum of
 //     s8 x s4, by __dp4a over unpacked s8 quads.  Byte j of a row holds dim
 //     j in its high nibble (signed) and dim j + D/2 in its low nibble
@@ -42,21 +43,27 @@
 // is that of the device-memory bytes: the corpus, mult and add read once,
 // the output written once.  On the CUDA cores that holds only for a few
 // queries (32 multiply-adds per element are 0.26 ms of f32 work at 2^20 x
-// 256, three times the memory time); on the tensor cores the same product
-// is a fifth of the memory time, so the float-query kinds run there.
+// 256, three times the memory time, and 2.1 G __dp4a at Q=32 are 0.15-0.2
+// ms of issue time); on the tensor cores the same product is a fifth (bf16)
+// or a tenth (s8) of the memory time, so every kind over int8 or bf16 rows
+// runs there, and only the int4 kinds still use __dp4a.
 //
-// Design, float queries (stage1_mma_kernel: dewi_bmax, dewi_scores_matrix,
-// dewi_bmax_t over int8 or bf16 rows).  The product runs on the tensor
-// cores as mma.sync m16n8k16 (bf16 x bf16 -> f32) with the corpus rows as
-// the 16-row operand and the queries, zero-padded to tiles of 8, as the
+// Design, tensor cores (stage1_mma_kernel: dewi_bmax, dewi_scores_matrix,
+// dewi_bmax_t with float queries over int8 or bf16 rows; dewi_bmax_s8,
+// dewi_scores_matrix_s8, dewi_bmax_s8_t with s8 queries over int8 rows).
+// The product runs as mma.sync, m16n8k16 bf16 x bf16 -> f32 for float
+// queries and m16n8k32 s8 x s8 -> s32 for s8 queries, with the corpus rows
+// as the 16-row operand and the queries, zero-padded to tiles of 8, as the
 // 8-column one, so one pass over the rows serves every query of the
 // launch (1, 2 or 4 query tiles) and a score does not depend on how many
 // queries ride with it.
-//   * Each warp is a worker of its own: it walks whole 128-row sub-blocks
-//     (sub-block w, w + W, ... of the W warps of a persistent grid), 32
-//     rows (two 16-row tiles) at a time, and keeps the running maximum of
-//     the sub-block in registers, so the block max needs no shared memory
-//     and the main loop no CTA barrier.
+//   * Each warp is a worker of its own: it walks units w, w + W, ... of
+//     the W warps of a persistent grid, 32 rows (two 16-row tiles) at a
+//     time.  For the block max a unit is a whole 128-row sub-block, whose
+//     running maximum the warp keeps in registers, so the block max needs
+//     no shared memory and the main loop no CTA barrier; for the [Q, cap]
+//     f32 store a unit is one 32-row group, so the grid reads and writes
+//     one contiguous range at a time (unit_groups).
 //   * Loads stay in flight while the warp computes: a ring of kStages
 //     slabs (32 rows x 256 bytes, so 8 KB of one contiguous range where a
 //     row is 256 bytes) per warp filled by 16-byte cp.async copies, the
@@ -69,33 +76,41 @@
 //     third stage gained nothing.
 //   * A thread feeds its fragments from 16 consecutive bytes of a row (its
 //     quad covers 64): a dot product does not care in which order k runs,
-//     so those bytes take the k slots of 4 (int8) or 2 (bf16) mma steps
-//     and the queries are laid out once per CTA in the same order, one
-//     16-byte vector per lane, tile and step pair.  The 16-byte chunks of
-//     a slab row are XOR-swizzled by the row's parity, which makes both
-//     the copies and the reads free of bank conflicts; a k tail is
-//     zero-filled by the copy (zero rows against zero-padded queries).
-//   * int8 rows become bf16 once per element (s8x4_to_bf16x4: a byte
-//     permute, two masks and one packed subtract per pair, all full
-//     rate); every s8 value is exact in bf16, so the products stay exact
-//     in f32.
+//     so those bytes take the k slots of 4 (int8 rows, float queries) or 2
+//     (bf16 rows; int8 rows with s8 queries) mma steps and the queries are
+//     laid out once per CTA in the same order, one 16-byte vector per lane,
+//     tile and step pair (bf16 for float queries, s8 bytes as they are).
+//     The 16-byte chunks of a slab row are XOR-swizzled by the row's
+//     parity, which makes both the copies and the reads free of bank
+//     conflicts; a k tail is zero-filled by the copy (zero rows against
+//     zero-padded queries).
+//   * With float queries int8 rows become bf16 once per element
+//     (s8x4_to_bf16x4: a byte permute, two masks and one packed subtract
+//     per pair, all full rate); every s8 value is exact in bf16, so the
+//     products stay exact in f32.  With s8 queries the row bytes are the
+//     A fragments as they are.
 //   * The epilogue is one fmaf(acc, mult, add) per score, mult/add loaded
-//     a row group ahead; the maxima of a sub-block are reduced over the
-//     accumulator fragments by three shuffles.  The [Q, cap] store writes
-//     whole 32-byte sectors (8 consecutive rows of a query) from the
-//     accumulator layout.
+//     a row group ahead (s8 queries: fmaf(float(acc), q_scale * mult,
+//     add), each lane's q_scale loaded once); the maxima of a sub-block are
+//     reduced over the accumulator fragments by three shuffles.  The
+//     [Q, cap] store writes whole 32-byte sectors (8 consecutive rows of a
+//     query) from the accumulator layout; streaming (.cs) stores and 4 or 6
+//     warps per SM were slower there (an H100 at Q=32).
 //   * RowOperand<KIND> is all that knows the operand type (bytes to
-//     fragments, the mma): the ring, the walk, the reduction and the
-//     epilogue do not.
-// The tensor cores add the 16 exact products of a step and the running sum
-// in their own order and precision, so a result may differ from an f32
-// sum in sequence by a few ulps of the largest partial sum.
+//     fragments, the query and accumulator types, the mma): the ring, the
+//     walk and the reduction do not.
+// In f32 the tensor cores add the 16 exact products of a step and the
+// running sum in their own order and precision, so a float-query result may
+// differ from an f32 sum in sequence by a few ulps of the largest partial
+// sum; the s32 sum of the s8 kind is exact, so those results equal the
+// plain versions' and the TPU kernels' bit for bit.
 //
-// Design, s8 queries (stage1_kernel: the s8 and s4 kinds): one CTA of 128
-// threads per 128-row sub-block, one thread per corpus row.  Each row is
-// staged into shared memory 256 bytes at a time with 16-byte cp.async
-// copies (neighbouring threads on neighbouring addresses), rows padded by
-// 16 bytes so the per-thread 16-byte reads are free of bank conflicts.
+// Design, s8 queries over int4 rows (stage1_kernel: the s4 kinds): one CTA
+// of 128 threads per 128-row sub-block, one thread per corpus row.  Each
+// row is staged into shared memory 256 bytes at a time with 16-byte
+// cp.async copies (neighbouring threads on neighbouring addresses), rows
+// padded by 16 bytes so the per-thread 16-byte reads are free of bank
+// conflicts.
 // All Q <= 32 queries sit in shared memory as s8 and are read as
 // broadcasts; each thread keeps one int32 accumulator per query in
 // registers (exact __dp4a sums).  The sub-block max is a warp-shuffle
@@ -131,7 +146,7 @@ struct Args {
   long long out_bstride;
 };
 
-// ---- float queries: bf16 mma.sync on the tensor cores -----------------------
+// ---- int8 and bf16 rows: mma.sync on the tensor cores ------------------------
 
 constexpr int kMmaWarps = 8;                  // workers per CTA, fewer where the queries are wide
 constexpr int kMmaMinWarps = 4;
@@ -154,37 +169,26 @@ static_assert(kSlabVecs == 8 || kSlabVecs == 16 || kSlabVecs == 32,
               "a slab row is 128, 256 or 512 bytes");
 constexpr int kQueryTile = 8;                 // queries per mma column tile
 
-// All that the tensor-core kernel knows of the rows' type: how many 16-byte
-// query vectors and mma k-steps a lane's 16 row bytes make, how those
-// bytes become the A fragments of step j (rows g and g + 8 of an m16 tile),
-// and the mma itself.
+// All that the tensor-core kernel knows of the rows' type: the row elements
+// in a lane's 16 row bytes, how many 16-byte query vectors and mma k-steps
+// they make, how those bytes become the A fragments of step j (rows g and
+// g + 8 of an m16 tile), the query type (f32 rounded to bf16, or s8 as it
+// is), the accumulator, and the mma itself.
 template <int KIND>
 struct RowOperand;
 
 struct Bf16Mma {
+  using Acc = float;
+  static constexpr bool kS8Queries = false;
   static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
     mma_bf16_16816(c, a, b0, b1);
   }
 };
 
-template <>
-struct RowOperand<kInt8> : Bf16Mma {
-  static constexpr int kQueryVecs = 2;  // 16 row elements: 16 bf16 of the query
-  static constexpr int kSteps = 4;
-  static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
-                                                uint32_t (&a)[4]) {
-    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
-    const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
-    s8x4_to_bf16x4(wl[j], a[0], a[2]);
-    s8x4_to_bf16x4(wh[j], a[1], a[3]);
-  }
-};
-
-template <>
-struct RowOperand<kBf16> : Bf16Mma {
-  static constexpr int kQueryVecs = 1;  // 8 row elements: 8 bf16 of the query
-  static constexpr int kSteps = 2;
+// The four words of a lane's rows g and g + 8 two at a time, as they are:
+// the A fragments of bf16 rows (two bf16 a word) and of s8 rows (four s8).
+struct WordPairFrag {
   static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
                                                 uint32_t (&a)[4]) {
     const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
@@ -196,12 +200,55 @@ struct RowOperand<kBf16> : Bf16Mma {
   }
 };
 
+template <>
+struct RowOperand<kInt8> : Bf16Mma {
+  static constexpr int kLaneElems = 16;
+  static constexpr int kQueryVecs = 2;  // 16 bf16 of the query
+  static constexpr int kSteps = 4;
+  static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
+                                                uint32_t (&a)[4]) {
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
+    s8x4_to_bf16x4(wl[j], a[0], a[2]);
+    s8x4_to_bf16x4(wh[j], a[1], a[3]);
+  }
+};
+
+template <>
+struct RowOperand<kBf16> : Bf16Mma, WordPairFrag {
+  static constexpr int kLaneElems = 8;
+  static constexpr int kQueryVecs = 1;  // 8 bf16 of the query
+  static constexpr int kSteps = 2;
+};
+
+// s8 queries over int8 rows: the bytes go to mma m16n8k32 as they are and
+// the sum is the exact int32 dot, as JAX's.
+template <>
+struct RowOperand<kS8> : WordPairFrag {
+  using Acc = int;
+  static constexpr bool kS8Queries = true;
+  static constexpr int kLaneElems = 16;
+  static constexpr int kQueryVecs = 1;  // 16 s8 of the query
+  static constexpr int kSteps = 2;
+  static __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_s8_16832(c, a, b0, b1);
+  }
+};
+
 // Dynamic shared memory of one CTA: the queries in fragment order (one
 // 16-byte vector per lane, query tile, chunk and query vector) and a ring
 // per warp.
 __host__ __device__ constexpr size_t mma_query_bytes(int kind, int nt, int row_bytes) {
   return static_cast<size_t>(nt) * ((row_bytes + kChunkBytes - 1) / kChunkBytes) *
          (kind == kInt8 ? 2 : 1) * 32 * 16;
+}
+
+// Row groups in a warp's unit of work.  Walking one row group at a time
+// made the [Q, cap] store 2% faster than whole sub-blocks with f32 out and
+// 1% slower with bf16 out (an H100 at Q=32).
+__host__ __device__ constexpr int unit_groups(bool bmax, int out_bf16) {
+  return bmax || out_bf16 ? kGroups : 1;
 }
 
 // The warps of a CTA at this query size: as many rings as fit beside the
@@ -216,13 +263,16 @@ int mma_warps(int kind, int nt, int row_bytes) {
 template <int KIND, bool BMAX, int NT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
-                  const float* __restrict__ qf,  // [nq, d] f32
+                  const float* __restrict__ qf,      // [nq, d] f32 (float kinds)
+                  const int8_t* __restrict__ q8,     // [nq, d] s8 (kS8)
+                  const float* __restrict__ qscale,  // [nq] (kS8)
                   const float* __restrict__ mult, const float* __restrict__ add,
                   void* __restrict__ out, int out_bf16, int nq, int d, long long cap,
                   long long out_qstride, long long out_bstride) {
   using Op = RowOperand<KIND>;
+  using Acc = typename Op::Acc;
   constexpr int QV = Op::kQueryVecs;
-  constexpr int kLaneElems = 8 * QV;  // row elements in a lane's 16 bytes
+  constexpr int kLaneElems = Op::kLaneElems;  // row elements in a lane's 16 bytes
   extern __shared__ __align__(16) uint8_t smem[];
   uint4* qfrag = reinterpret_cast<uint4*>(smem);
 
@@ -233,10 +283,13 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   const int t = lane & 3;   // its k slots
   const int nchunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
 
-  // Stage the queries once per CTA, rounded to bf16 as the TPU kernel casts
-  // them before the dot, in the order the lanes read them: vector v of
-  // lane (g, t) for tile nt and chunk c holds elements (4c + t) *
-  // kLaneElems + 8v .. +7 of query 8 nt + g; zeros past nq and past d.
+  // Stage the queries once per CTA in the order the lanes read them: vector
+  // v of lane (g, t) for tile nt and chunk c holds elements (4c + t) *
+  // kLaneElems + 8v .. of query 8 nt + g, zeros past nq and past d.  Float
+  // queries are rounded to bf16 as the TPU kernel casts them before the
+  // dot; s8 queries are their bytes (16-byte aligned, as the wrapper
+  // checks).  d is a multiple of 8 (bf16 rows) or 16 (int8 rows), so a
+  // vector is all in or all out.
   for (int i = tid; i < NT * nchunks * QV * 32; i += blockDim.x) {
     const int ln = i & 31;
     int r = i >> 5;
@@ -245,33 +298,44 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     const int c = r % nchunks;
     const int q = (r / nchunks) * kQueryTile + (ln >> 2);
     const int e0 = (c * 4 + (ln & 3)) * kLaneElems + v * 8;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (q < nq && e0 < d) {  // d is a multiple of 8: a vector is all in or all out
-      const float* src = qf + static_cast<long long>(q) * d + e0;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (q < nq && e0 < d) {
+      if constexpr (Op::kS8Queries) {
+        w = *reinterpret_cast<const uint4*>(q8 + static_cast<long long>(q) * d + e0);
+      } else {
+        const float* src = qf + static_cast<long long>(q) * d + e0;
+        uint32_t b[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const __nv_bfloat162 pr = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
-        w[k] = *reinterpret_cast<const uint32_t*>(&pr);
+        for (int k = 0; k < 4; ++k) {
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(src[2 * k], src[2 * k + 1]);
+          b[k] = *reinterpret_cast<const uint32_t*>(&pr);
+        }
+        w = make_uint4(b[0], b[1], b[2], b[3]);
       }
     }
-    qfrag[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    qfrag[i] = w;
   }
   __syncthreads();
 
+  // A warp's unit of work (unit_groups(), in row groups): a whole
+  // sub-block where it keeps the block max, one row group where it stores
+  // [Q, cap] f32, so that there the warps of the grid read and write one
+  // contiguous range at a time.
+  const int ugroups = unit_groups(BMAX, out_bf16);
+  const int urows = ugroups * kGroupRows;
   uint8_t* ring = smem + mma_query_bytes(KIND, NT, row_bytes) + warp * kRingBytes;
-  const long long nsb = cap / kSub;
+  const long long nunits = cap / urows;
   const int cta_warps = blockDim.x >> 5;
   const int nwarps = gridDim.x * cta_warps;
   const int wid = blockIdx.x * cta_warps + warp;
   const int nslab = (row_bytes + kRingSlabBytes - 1) / kRingSlabBytes;
-  const long long mine = wid < nsb ? (nsb - wid + nwarps - 1) / nwarps : 0;
-  const long long total = mine * kGroups * nslab;  // slabs this warp walks
+  const long long mine = wid < nunits ? (nunits - wid + nwarps - 1) / nwarps : 0;
+  const long long total = mine * ugroups * nslab;  // slabs this warp walks
 
-  // Producer: slab p_s of row group p_g of sub-block p_sb goes to a ring
-  // stage, kCopyRows rows per copy instruction (kSlabVecs lanes x 16 bytes
-  // a row).
+  // Producer: slab p_s of row group p_g of unit p_u goes to a ring stage,
+  // kCopyRows rows per copy instruction (kSlabVecs lanes x 16 bytes a row).
   constexpr int kCopyRows = 32 / kSlabVecs;
-  long long p_sb = wid;
+  long long p_u = wid;
   int p_g = 0, p_s = 0;
   const int p_row = lane / kSlabVecs;
   const int p_vec = lane % kSlabVecs;
@@ -281,7 +345,7 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     if (col < nchunks * kChunkBytes) {            // the chunks that are read
       const int nbytes = col < row_bytes ? 16 : 0;  // a k tail is zero-filled
       const uint8_t* src =
-          emb + (p_sb * kSub + p_g * kGroupRows + p_row) * row_bytes + (nbytes ? col : 0);
+          emb + (p_u * urows + p_g * kGroupRows + p_row) * row_bytes + (nbytes ? col : 0);
       uint8_t* dst = ring + stage * kStageBytes + p_dst;
 #pragma unroll
       for (int i = 0; i < kGroupRows / kCopyRows; ++i) {
@@ -291,9 +355,9 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     }
     if (++p_s == nslab) {
       p_s = 0;
-      if (++p_g == kGroups) {
+      if (++p_g == ugroups) {
         p_g = 0;
-        p_sb += nwarps;
+        p_u += nwarps;
       }
     }
   };
@@ -304,17 +368,24 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   }
 
   // Consumer state: the accumulators of the row group (kMTiles m16 tiles by
-  // NT query tiles), the sub-block's running maxima, and mult/add of the
+  // NT query tiles), the sub-block's running maxima, the q_scale of this
+  // lane's query columns 8 nt + 2t + e (s8 queries), and mult/add of the
   // group's rows 8 i + g, loaded a group ahead.
-  float acc[kMTiles][NT][4];
+  Acc acc[kMTiles][NT][4];
   float best[NT][2];
+  float qsc[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     best[nt][0] = best[nt][1] = -INFINITY;
 #pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = nt * kQueryTile + 2 * t + e;
+      qsc[nt][e] = (Op::kS8Queries && q < nq) ? qscale[q] : 0.f;
+    }
+#pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = Acc(0);
     }
   }
   float m[2 * kMTiles], a[2 * kMTiles];
@@ -325,9 +396,9 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       a[i] = add[row0 + 8 * i + g];
     }
   };
-  long long c_sb = wid;
+  long long c_u = wid;
   int c_g = 0, c_s = 0, stage = 0;
-  if (total > 0) load_mult_add(c_sb * kSub);
+  if (total > 0) load_mult_add(c_u * urows);
 
   for (long long it = 0; it < total; ++it) {
     cp_async_wait<kStages - 2>();  // this lane's copies of slab `it` have landed
@@ -376,10 +447,12 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     stage = stage + 1 == kStages ? 0 : stage + 1;
     if (++c_s < nslab) continue;
 
-    // The row group is complete: one rounding per score, then the maxima
-    // or the [Q, cap] store (8 consecutive rows of a query per quad row).
+    // The row group is complete: one rounding per score (for s8 queries
+    // after q_scale * mult, as the TPU kernel associates it), then the
+    // maxima or the [Q, cap] store (8 consecutive rows of a query per quad
+    // row).
     c_s = 0;
-    const long long row0 = c_sb * kSub + c_g * kGroupRows;
+    const long long row0 = c_u * urows + c_g * kGroupRows;
 #pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
@@ -387,8 +460,13 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
         float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          v[e] = __fmaf_rn(acc[mt][nt][e], m[2 * mt + (e >> 1)], a[2 * mt + (e >> 1)]);
-          acc[mt][nt][e] = 0.f;
+          const float mr = m[2 * mt + (e >> 1)], ar = a[2 * mt + (e >> 1)];
+          if constexpr (Op::kS8Queries) {
+            v[e] = __fmaf_rn(__int2float_rn(acc[mt][nt][e]), __fmul_rn(qsc[nt][e & 1], mr), ar);
+          } else {
+            v[e] = __fmaf_rn(acc[mt][nt][e], mr, ar);
+          }
+          acc[mt][nt][e] = Acc(0);
         }
         if constexpr (BMAX) {
           best[nt][0] = fmaxf(best[nt][0], fmaxf(v[0], v[2]));
@@ -409,7 +487,7 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
         }
       }
     }
-    if (++c_g == kGroups) {
+    if (++c_g == ugroups) {
       if constexpr (BMAX) {
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -421,16 +499,16 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
             v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 16));
             const int q = nt * kQueryTile + 2 * t + e;
             if (g == 0 && q < nq) {
-              reinterpret_cast<float*>(out)[q * out_qstride + c_sb * out_bstride] = v;
+              reinterpret_cast<float*>(out)[q * out_qstride + c_u * out_bstride] = v;
             }
             best[nt][e] = -INFINITY;
           }
         }
       }
       c_g = 0;
-      c_sb += nwarps;
+      c_u += nwarps;
     }
-    if (it + 1 < total) load_mult_add(c_sb * kSub + c_g * kGroupRows);
+    if (it + 1 < total) load_mult_add(c_u * urows + c_g * kGroupRows);
   }
 }
 
@@ -445,7 +523,7 @@ int launch_mma_nt(const Args& a, cudaStream_t stream) {
   cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);  // the rings alone pass 48 KB
   if (e != cudaSuccess) return static_cast<int>(e);
   // A persistent grid: as many CTAs as the card holds at once, or fewer
-  // where the corpus has fewer sub-blocks than that many warps.
+  // where the corpus has fewer units of work than that many warps.
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -453,12 +531,13 @@ int launch_mma_nt(const Args& a, cudaStream_t stream) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, warps * 32, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long long want = (a.cap / kSub + warps - 1) / warps;
+  const long long units = a.cap / (unit_groups(BMAX, a.out_bf16) * kGroupRows);
+  const long long want = (units + warps - 1) / warps;
   const long long held = static_cast<long long>(sms) * per_sm;
   const dim3 grid(static_cast<unsigned>(want < held ? want : held));
   fn<<<grid, warps * 32, smem, stream>>>(
-      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.mult, a.add, a.out,
-      a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
+      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.q8, a.qscale, a.mult, a.add,
+      a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -474,7 +553,7 @@ int launch_mma(const Args& a, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ---- s8 queries: exact __dp4a sums on the CUDA cores ------------------------
+// ---- s8 queries over int4 rows: exact __dp4a sums on the CUDA cores --------
 
 template <int KIND, bool BMAX, int QT>
 __global__ void __launch_bounds__(kThreads)
@@ -484,7 +563,7 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
               const float* __restrict__ mult, const float* __restrict__ add,
               void* __restrict__ out, int out_bf16, int nq, int d,
               long long cap, long long out_qstride, long long out_bstride) {
-  static_assert(KIND == kS4 || KIND == kS8, "the float-query kinds run on the tensor cores");
+  static_assert(KIND == kS4, "the int8 and bf16 row kinds run on the tensor cores");
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[QT][kThreads / 32];
   uint8_t* tile = smem;
@@ -513,43 +592,28 @@ stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       const uint4 raw = *reinterpret_cast<const uint4*>(my + c * 16);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
       const int byte0 = s0 + c * 16;
-      if constexpr (KIND == kS4) {
-        // hi = signed high nibble (dims byte0..+15), lo = low nibble - 8
-        // (dims D/2 + byte0..+15), four s8 lanes per 32-bit word.
-        uint32_t hq[4], lq[4];
+      // hi = signed high nibble (dims byte0..+15), lo = low nibble - 8
+      // (dims D/2 + byte0..+15), four s8 lanes per 32-bit word.
+      uint32_t hq[4], lq[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          hq[k] = __vsub4(((w[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-          lq[k] = __vsub4(w[k] & 0x0F0F0F0Fu, 0x08080808u);
-        }
+      for (int k = 0; k < 4; ++k) {
+        hq[k] = __vsub4(((w[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+        lq[k] = __vsub4(w[k] & 0x0F0F0F0Fu, 0x08080808u);
+      }
 #pragma unroll
-        for (int qi = 0; qi < QT; ++qi) {
-          const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
-          const int4 b = *reinterpret_cast<const int4*>(qs8 + qi * d + (d >> 1) + byte0);
-          int acc = iacc[qi];
-          acc = __dp4a(static_cast<int>(hq[0]), a.x, acc);
-          acc = __dp4a(static_cast<int>(hq[1]), a.y, acc);
-          acc = __dp4a(static_cast<int>(hq[2]), a.z, acc);
-          acc = __dp4a(static_cast<int>(hq[3]), a.w, acc);
-          acc = __dp4a(static_cast<int>(lq[0]), b.x, acc);
-          acc = __dp4a(static_cast<int>(lq[1]), b.y, acc);
-          acc = __dp4a(static_cast<int>(lq[2]), b.z, acc);
-          acc = __dp4a(static_cast<int>(lq[3]), b.w, acc);
-          iacc[qi] = acc;
-        }
-      } else {
-        // Sixteen s8 dims of the row (byte0..+15) against the same dims of
-        // each query: four __dp4a, exact in int32.
-#pragma unroll
-        for (int qi = 0; qi < QT; ++qi) {
-          const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
-          int acc = iacc[qi];
-          acc = __dp4a(static_cast<int>(w[0]), a.x, acc);
-          acc = __dp4a(static_cast<int>(w[1]), a.y, acc);
-          acc = __dp4a(static_cast<int>(w[2]), a.z, acc);
-          acc = __dp4a(static_cast<int>(w[3]), a.w, acc);
-          iacc[qi] = acc;
-        }
+      for (int qi = 0; qi < QT; ++qi) {
+        const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
+        const int4 b = *reinterpret_cast<const int4*>(qs8 + qi * d + (d >> 1) + byte0);
+        int acc = iacc[qi];
+        acc = __dp4a(static_cast<int>(hq[0]), a.x, acc);
+        acc = __dp4a(static_cast<int>(hq[1]), a.y, acc);
+        acc = __dp4a(static_cast<int>(hq[2]), a.z, acc);
+        acc = __dp4a(static_cast<int>(hq[3]), a.w, acc);
+        acc = __dp4a(static_cast<int>(lq[0]), b.x, acc);
+        acc = __dp4a(static_cast<int>(lq[1]), b.y, acc);
+        acc = __dp4a(static_cast<int>(lq[2]), b.z, acc);
+        acc = __dp4a(static_cast<int>(lq[3]), b.w, acc);
+        iacc[qi] = acc;
       }
     }
   }
@@ -668,7 +732,7 @@ int dewi_scores_matrix_s8(const void* emb, const int8_t* q8, const float* qscale
                           const float* mult, const float* add, void* out,
                           int out_bf16, int nq, int d, long long cap, void* stream) {
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
-  return launch<kS8, false>(a, stream);
+  return launch_mma<kS8, false>(a, stream);
 }
 
 // pallas_bmax_s8: as dewi_scores_matrix_s8, out [nq, cap / 128] f32.
@@ -676,7 +740,7 @@ int dewi_bmax_s8(const void* emb, const int8_t* q8, const float* qscale,
                  const float* mult, const float* add, float* out, int nq, int d,
                  long long cap, void* stream) {
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
-  return launch<kS8, true>(a, stream);
+  return launch_mma<kS8, true>(a, stream);
 }
 
 // pallas_bmax_s8_t: as dewi_bmax_s8, corpus-major into out [cap / 128, ldo].
@@ -685,7 +749,7 @@ int dewi_bmax_s8_t(const void* emb, const int8_t* q8, const float* qscale,
                    int nq, int d, long long cap, void* stream) {
   if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, 1, ldo};
-  return launch<kS8, true>(a, stream);
+  return launch_mma<kS8, true>(a, stream);
 }
 
 // pallas_scores_matrix_s4: packed [cap, d / 2] int8, q8 [nq, d] int8,
@@ -710,11 +774,11 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
 
 // The most queries one launch takes at dim d (a power of two up to 32):
 // the wrappers launch once per group of this many.  kind: 0 int8 rows with
-// float queries, 1 bf16 rows (both in whole tiles of 8 queries), 2 packed
-// int4 rows, 3 int8 rows with s8 queries.  0 when not even one query (or
-// one tile) fits.
+// float queries, 1 bf16 rows, 3 int8 rows with s8 queries (these three in
+// whole tiles of 8 queries), 2 packed int4 rows.  0 when not even one query
+// (or one tile) fits.
 int dewi_queries_per_launch(int kind, int d) {
-  if (kind == kInt8 || kind == kBf16) {
+  if (kind != kS4) {
     for (int nt = 4; nt >= 1; nt >>= 1) {
       if (mma_warps(kind, nt, d * (kind == kBf16 ? 2 : 1)) > 0) return nt * kQueryTile;
     }

@@ -20,16 +20,18 @@ wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from     
 ``int8_stream_search``  ``pallas_int8_search`` :239             the same, over the int8 codes    292.0 MB
 ======================  ======================================  ===============================  ============
 
-The three float-query kernels (``bmax``, ``scores_matrix``, ``bmax_t``;
-int8 or bf16 rows) compute their product on the tensor cores:
-``mma.sync`` m16n8k16 in bf16 with f32 sums, the rows as the 16-row
-operand and the queries in tiles of 8 columns, each warp a persistent
-worker that walks whole 128-row sub-blocks behind its own double-buffered
-``cp.async`` ring of 32 rows x 256 bytes, int8 rows widened to bf16
-exactly by a byte permute, two masks and a packed subtract.  With the
-product there they are bound by device-memory bytes at every Q <= 32, and
-one code path serves every Q, so a score does not depend on how many
-queries ride with it.  The s8-query kernels (s8 and s4 kinds) keep exact
+The six kernels over int8 or bf16 rows compute their product on the
+tensor cores: the float-query ones (``bmax``, ``scores_matrix``,
+``bmax_t``) as ``mma.sync`` m16n8k16 in bf16 with f32 sums, int8 rows
+widened to bf16 exactly by a byte permute, two masks and a packed
+subtract; the s8-query ones (``bmax_s8``, ``scores_matrix_s8``,
+``bmax_s8_t``) as m16n8k32 s8 x s8 with exact int32 sums over the bytes as
+they are.  The rows are the 16-row operand and the queries tiles of 8
+columns, each warp a persistent worker that walks whole 128-row
+sub-blocks behind its own double-buffered ``cp.async`` ring of 32 rows x
+256 bytes.  With the product there they are bound by device-memory bytes
+at every Q <= 32, and one code path serves every Q, so a score does not
+depend on how many queries ride with it.  The int4 kernels keep exact
 ``__dp4a`` sums on the CUDA cores, one thread per corpus row.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -164,8 +166,9 @@ def _check_s8_query(name: str, emb_i8: torch.Tensor, q_i8: torch.Tensor,
     _require(q_scale.dtype == torch.float32
              and tuple(q_scale.shape) == (q_i8.shape[0],),
              f"{name}: q_scale must be float32 [{q_i8.shape[0]}]")
-    if emb_i8.device.type == "cuda":
+    if emb_i8.device.type == "cuda":  # the kernels read 16 query bytes at a time
         _require(d % 16 == 0, f"{name}: dim {d} must be a multiple of 16")
+        _require(q_i8.data_ptr() % 16 == 0, f"{name}: queries must be 16-byte aligned")
 
 
 def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
@@ -441,7 +444,8 @@ def scores_matrix_s8(emb_i8: torch.Tensor, mult: torch.Tensor,
 
     ``acc`` is the exact int32 dot of the s8 query with the int8 row.
     Replaces ``pallas_scores_matrix_s8`` (dewi_tpu/ops/pallas_search.py:378).
-    Bound: bytes (corpus + mult/add read, ``[Q, cap]`` written).
+    Bound: bytes (corpus + mult/add read, ``[Q, cap]`` written); the
+    product runs on the int8 tensor cores.
     """
     name = "scores_matrix_s8"
     _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)
@@ -467,7 +471,8 @@ def bmax_s8(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
 
     Replaces ``pallas_bmax_s8`` (dewi_tpu/ops/pallas_search.py:609), the
     stage 1 of the int8 tier with ``int8_queries``.  Bound: bytes (corpus +
-    mult/add; only the maxima are written).
+    mult/add; only the maxima are written); the product runs on the int8
+    tensor cores and the maxima never leave registers.
     """
     name = "bmax_s8"
     _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)
@@ -491,6 +496,8 @@ def bmax_s8_t(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
 
     Replaces ``pallas_bmax_s8_t`` (dewi_tpu/ops/pallas_search.py:793), taken
     where the stream block is not a multiple of 16384 rows.  Bound: bytes.
+    The same kernel as :func:`bmax_s8` with other store strides, so equal
+    to it transposed bit for bit.
     """
     name = "bmax_s8_t"
     _check_common(name, emb_i8, mult, add, q_i8.shape[0], q_i8, q_scale)

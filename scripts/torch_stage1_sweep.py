@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Time the float-query stage-1 kernels of ``dewi_tpu_torch`` over Q.
+"""Time the tensor-core stage-1 kernels of ``dewi_tpu_torch`` over Q.
 
     python3 scripts/torch_stage1_sweep.py [--root DIR] [--errors] [--no-check]
 
 On one CUDA card, at cap 2^20 x 256: ``bmax``, ``bmax_t`` and
-``scores_matrix`` over int8 and bf16 rows at Q 1, 2, 4, 8, 16 and 32
-(CUDA-event medians of 50, ``chip_smoke.stage1_sweep``), after holding each
-against its plain version.  ``--root DIR`` takes the package from another
-checkout (``DIR/dewi_tpu_torch``), so that two versions of the kernels can
-be timed in turns on the same card: run parent, change, change, parent.
+``scores_matrix`` over int8 and bf16 rows, ``bmax_s8``, ``bmax_s8_t`` and
+``scores_matrix_s8`` over int8 rows, at Q 1, 2, 4, 8, 16 and 32, each beside
+its bound (CUDA-event medians of 50, ``chip_smoke.stage1_sweep``), after
+holding each against its plain version (the s8 kernels bit for bit).
+``--root DIR`` takes the package from another checkout
+(``DIR/dewi_tpu_torch``), so that two versions of the kernels can be timed
+in turns on the same card: run parent, change, change, parent.
 ``--errors`` also prints, at cap 16,384 and D 64, 256, 2048 and 8192 with
 32 queries, the largest |kernel - plain| of ``scores_matrix`` and how far
 that is from the tolerance of the checks (rtol 1e-5 plus 1e-5 of the
-largest |plain|; 1.0 would be at the limit).  ``--no-check`` times without
+largest |plain|; 1.0 would be at the limit), and asserts that the three s8
+kernels equal their plain versions there.  ``--no-check`` times without
 the comparison (for a kernel deliberately altered to find what it costs).
-Prints the card and one JSON
-line per row.
+Prints the card and one JSON line per row.
 """
 
 from __future__ import annotations
@@ -54,16 +56,21 @@ def main() -> int:
     print(json.dumps({"root": str(Path(args.root).resolve()),
                       "nvcc_seconds": _build.build_seconds}), flush=True)
 
+    s8_kernels = ((cs.bmax_s8, cs.bmax_s8_plain), (cs.bmax_s8_t, cs.bmax_s8_t_plain),
+                  (cs.scores_matrix_s8, cs.scores_matrix_s8_plain))
     x = smoke.kernel_inputs(1 << 20, 256, 32, seed=0)
-    for emb, mult in ((x["e8"], x["m8"]), (x["ebf"], x["mbf"])):
-        for nq in () if args.no_check else smoke.SWEEP_Q:
-            q = x["q"][:nq].contiguous()
+    for nq in () if args.no_check else smoke.SWEEP_Q:
+        q = x["q"][:nq].contiguous()
+        for emb, mult in ((x["e8"], x["m8"]), (x["ebf"], x["mbf"])):
             smoke.compare(cs.bmax(emb, mult, x["add"], q),
                           cs.bmax_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
             smoke.compare(cs.scores_matrix(emb, mult, x["add"], q),
                           cs.scores_matrix_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
+        s8 = (x["e8"], x["m8"], x["add"], x["q8"][:nq].contiguous(), x["qs"][:nq].contiguous())
+        for fn, plain in s8_kernels:
+            smoke.compare(fn(*s8), plain(*s8), 0.0, 0.0)
     for key, row in smoke.stage1_sweep(x).items():
-        print(json.dumps({"sweep": key, "ms_by_q": row}), flush=True)
+        print(json.dumps({"sweep": key, **row}), flush=True)
     del x
     torch.cuda.empty_cache()
 
@@ -80,6 +87,13 @@ def main() -> int:
                 print(json.dumps({"errors": rows, "D": d, "max_abs_err": float(err.max()),
                                   "max_abs_plain": float(want.abs()[fin].max()),
                                   "share_of_tolerance": float((err / lim).max())}),
+                      flush=True)
+            s8 = (x["e8"], x["m8"], x["add"], x["q8"], x["qs"])
+            for fn, plain in s8_kernels:
+                got, want = fn(*s8), plain(*s8)
+                torch.cuda.synchronize()
+                smoke.check(torch.equal(got, want), f"{fn.__name__} differs from plain at D={d}")
+                print(json.dumps({"errors": fn.__name__, "D": d, "max_abs_err": 0.0}),
                       flush=True)
             del x
             torch.cuda.empty_cache()

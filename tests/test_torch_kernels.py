@@ -8,11 +8,15 @@ kernels bit for bit (the integer accumulator is exact, the f32 epilogue is
 the same fused association); bf16-dot kernels, the corpus-major ``bmax_t``
 included, rtol 1e-5 and atol 1e-5 of the largest |score| (only the order
 of the f32 sum differs, and its rounding scales with the terms).  The
-quantizers must match bit for bit.  The float-query kernels are also held
-at the shapes their tensor-core tiling makes special: 7, 8, 9, 17 and 33
-queries (around the 8-query tiles and the 32-query launch), dims 16, 48
-and, for bf16 rows, 264 (a multiple of 8 but not of 16), over three
-sub-blocks of which the last is all padding.
+quantizers must match bit for bit.  The tensor-core kernels are also held
+at the shapes their tiling makes special: 7, 8, 9, 17 and 33 queries
+(around the 8-query tiles and the 32-query launch); for the float-query
+kernels dims 16, 48 and, for bf16 rows, 264 (a multiple of 8 but not of
+16), over three sub-blocks of which the last is all padding; for the s8
+kernels dims 16, 48 (not a multiple of the 64-byte chunk) and 272 (a
+16-byte second slab), over 1024 rows whose last sub-block is all padding,
+and one saturated case (all values +-127 at D 2048), where only an exact
+integer sum, not an f32 one, gives the reference's scores.
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
 and skip without a card.  They import no JAX, so on the card they run
@@ -66,6 +70,30 @@ TILE_EDGE_SHAPES = ([(nq, d, bf) for nq in (7, 8, 9, 17, 33) for d in (16, 48)
                      for bf in (False, True)]
                     + [(nq, 264, True) for nq in (7, 8, 9, 17, 33)])
 TILE_EDGE_CAP = 384  # three sub-blocks, walked in one block by the Pallas functions
+
+
+# Shapes the tensor-core tiling of the s8 kernels makes special: (queries,
+# dim).  Dim 48 is not a multiple of a 64-byte chunk; 272 adds a 16-byte
+# second slab of 256-byte rows.
+S8_TILE_EDGE_SHAPES = [(nq, d) for nq in (7, 8, 9, 17, 33) for d in (16, 48, 272)]
+S8_TILE_EDGE_CAP = 1024  # the smallest corpus pallas_bmax_s8_t takes; 8 sub-blocks
+
+
+def _saturated_s8(nq=5, cap=S8_TILE_EDGE_CAP, d=2048, seed=44):
+    """s8 queries and int8 rows that are all +-127.  The first half of the
+    rows copy a query's signs with 1% of them flipped, so their |acc| passes
+    2^24, past which an f32 running sum is no longer exact; the rest are
+    random.  The last 150 rows are padding."""
+    rng = np.random.default_rng(seed)
+    qsign = rng.choice(np.array([-1, 1], np.int8), size=(nq, d))
+    src = qsign[np.arange(cap) % nq]
+    rate = np.where(np.arange(cap) < cap // 2, 0.01, 0.5)[:, None]
+    emb = (127 * np.where(rng.random((cap, d)) < rate, -src, src)).astype(np.int8)
+    mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
+    add = rng.normal(size=cap).astype(np.float32)
+    add[cap - 150:] = -np.inf
+    qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
+    return emb, mult, add, (127 * qsign).astype(np.int8), qs
 
 
 def _corpus_pair(jnp, emb, bf16_corpus):
@@ -231,6 +259,55 @@ class TestPlainVsPallas:
         _assert_match(port, ref, rtol=0, atol=0)
         # the corpus-major maxima are the query-major ones transposed
         assert torch.equal(port, cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs)).T)
+
+    @pytest.mark.parametrize("nq,d", S8_TILE_EDGE_SHAPES)
+    def test_bmax_s8_tile_edges(self, jx, nq, d):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 43, cap=S8_TILE_EDGE_CAP, d=d)
+        ref = ps.pallas_bmax_s8(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                jnp.asarray(q8), jnp.asarray(qs), block=S8_TILE_EDGE_CAP,
+                                interpret=True)
+        port = cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs))
+        assert tuple(port.shape) == (nq, 8) and bool(torch.isneginf(port[:, 7]).all())
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("nq,d", S8_TILE_EDGE_SHAPES)
+    @pytest.mark.parametrize("bf16_out", [False, True])
+    def test_scores_matrix_s8_tile_edges(self, jx, nq, d, bf16_out):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 44, cap=S8_TILE_EDGE_CAP, d=d)
+        ref = ps.pallas_scores_matrix_s8(
+            jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q8),
+            jnp.asarray(qs), block=S8_TILE_EDGE_CAP, interpret=True,
+            out_dtype=jnp.bfloat16 if bf16_out else jnp.float32)
+        port = cs.scores_matrix_s8(T(emb), T(mult), T(add), T(q8), T(qs),
+                                   out_dtype=torch.bfloat16 if bf16_out else torch.float32)
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("nq,d", S8_TILE_EDGE_SHAPES)
+    def test_bmax_s8_t_tile_edges(self, jx, nq, d):
+        jnp, ps, _ = jx
+        emb, _, mult, add, _, q8, qs = _inputs(nq, 45, cap=S8_TILE_EDGE_CAP, d=d)
+        ref = ps.pallas_bmax_s8_t(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                  jnp.asarray(q8), jnp.asarray(qs), block=S8_TILE_EDGE_CAP,
+                                  interpret=True)
+        port = cs.bmax_s8_t(T(emb), T(mult), T(add), T(q8), T(qs))
+        assert tuple(port.shape) == (8, nq) and bool(torch.isneginf(port[7]).all())
+        _assert_match(port, ref, rtol=0, atol=0)
+        assert torch.equal(port, cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs)).T)
+
+    def test_scores_matrix_s8_saturated(self, jx):
+        jnp, ps, _ = jx
+        emb, mult, add, q8, qs = _saturated_s8()
+        acc = q8.astype(np.int64) @ emb.T.astype(np.int64)
+        f32_running_sum = np.add.accumulate(
+            q8[:, None, :].astype(np.float32) * emb[None].astype(np.float32), axis=-1)[..., -1]
+        assert np.abs(acc).max() > 2 ** 24 and bool((f32_running_sum != acc).any())
+        ref = ps.pallas_scores_matrix_s8(jnp.asarray(emb), jnp.asarray(mult), jnp.asarray(add),
+                                         jnp.asarray(q8), jnp.asarray(qs),
+                                         block=S8_TILE_EDGE_CAP, interpret=True)
+        port = cs.scores_matrix_s8(T(emb), T(mult), T(add), T(q8), T(qs))
+        _assert_match(port, ref, rtol=0, atol=0)
 
 
 class TestQuantizersBitExact:
@@ -398,13 +475,19 @@ def test_card_scores_matrix(cuda_device, nq, d, cap, out_dtype):
 def test_card_score_independent_of_batch(cuda_device):
     """One code path serves every Q, so a query's stage-1 score is the same
     bit for bit whether it rides alone, in a tile of 8 or in a full launch."""
-    e8, ebf, _, mult, add, q, _, _ = _card_inputs(cuda_device, nq=32)
+    e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, nq=32)
     for emb in (e8, ebf):
         full = cs.scores_matrix(emb, mult, add, q)
         for nq in (1, 8, 9):
             assert torch.equal(cs.scores_matrix(emb, mult, add, q[:nq].contiguous()), full[:nq])
         assert torch.equal(cs.bmax(emb, mult, add, q[:1].contiguous()),
                            cs.bmax(emb, mult, add, q)[:1])
+    full = cs.scores_matrix_s8(e8, mult, add, q8, qs)
+    for nq in (1, 8, 9):
+        part = (e8, mult, add, q8[:nq].contiguous(), qs[:nq].contiguous())
+        assert torch.equal(cs.scores_matrix_s8(*part), full[:nq])
+        assert torch.equal(cs.bmax_s8(*part), cs.bmax_s8(e8, mult, add, q8, qs)[:nq])
+        assert torch.equal(cs.bmax_s8_t(*part), cs.bmax_s8_t(e8, mult, add, q8, qs)[:, :nq])
 
 
 @pytest.mark.cuda
@@ -436,44 +519,77 @@ def test_card_wide_dim(cuda_device, d, nq, groups):
         _card_match(got, plain(p4, mult, add, q8, qs), rtol=0, atol=0)
 
 
+# (queries, dim, capacity, saturated) for the s8 kernels on the card: the
+# ragged main shapes, the tile edges of the CPU tests, and the saturated
+# case at D 2048 in two launches.
+CARD_S8_CASES = ([(nq, 64, 65536, False) for nq in (1, 5, 32, 40)]
+                 + [(nq, d, S8_TILE_EDGE_CAP, False) for nq, d in S8_TILE_EDGE_SHAPES]
+                 + [(40, 2048, 4096, True)])
+
+
+def _card_s8_inputs(dev, nq, d, cap, saturated):
+    """int8 rows, mult, add, s8 queries and their scales on the card."""
+    if saturated:
+        return tuple(T(a).to(dev) for a in _saturated_s8(nq, cap, d))
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(dev, cap=cap, d=d, nq=nq)
+    return e8, mult, add, q8, qs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32, 40])
-def test_card_bmax_s8(cuda_device, nq):
-    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+@pytest.mark.parametrize("nq,d,cap,saturated", CARD_S8_CASES)
+def test_card_bmax_s8(cuda_device, nq, d, cap, saturated):
+    s8 = _card_s8_inputs(cuda_device, nq, d, cap, saturated)
     before = cs.launch_counts["bmax_s8"]
-    got = cs.bmax_s8(e8, mult, add, q8, qs)
+    got = cs.bmax_s8(*s8)
     assert cs.launch_counts["bmax_s8"] == before + (nq + 31) // 32
-    _card_match(got, cs.bmax_s8_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
+    assert bool(torch.isneginf(got[:, -1]).all())
+    _card_match(got, cs.bmax_s8_plain(*s8), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32, 40])
+@pytest.mark.parametrize("nq,d,cap,saturated", CARD_S8_CASES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_card_scores_matrix_s8(cuda_device, nq, out_dtype):
-    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
-    got = cs.scores_matrix_s8(e8, mult, add, q8, qs, out_dtype=out_dtype)
+def test_card_scores_matrix_s8(cuda_device, nq, d, cap, saturated, out_dtype):
+    s8 = _card_s8_inputs(cuda_device, nq, d, cap, saturated)
+    got = cs.scores_matrix_s8(*s8, out_dtype=out_dtype)
     assert got.dtype == out_dtype
-    _card_match(got, cs.scores_matrix_s8_plain(e8, mult, add, q8, qs, out_dtype),
-                rtol=0, atol=0)
+    _card_match(got, cs.scores_matrix_s8_plain(*s8, out_dtype), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,d,cap", [(nq, 64, 65536) for nq in (1, 5, 32, 40)]
-                         + CARD_FLOAT_SHAPES[3:])
-def test_card_corpus_major(cuda_device, nq, d, cap):
+@pytest.mark.parametrize("nq,d,cap,saturated",
+                         [(nq, 64, 65536, False) for nq in (1, 5, 32, 40)]
+                         + [(nq, d, cap, False) for nq, d, cap in CARD_FLOAT_SHAPES[3:]]
+                         + CARD_S8_CASES[4:])
+def test_card_corpus_major(cuda_device, nq, d, cap, saturated):
     """The ``*_t`` kernels: their plain versions, and bit for bit the
     query-major kernels transposed (a group of 32 writes its columns)."""
     e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, cap=cap, d=d, nq=nq)
     if d % 16 == 0:
-        got = cs.bmax_s8_t(e8, mult, add, q8, qs)
-        assert tuple(got.shape) == (e8.shape[0] // 128, nq)
-        _card_match(got, cs.bmax_s8_t_plain(e8, mult, add, q8, qs), rtol=0, atol=0)
-        assert torch.equal(got, cs.bmax_s8(e8, mult, add, q8, qs).T)
+        s8 = _card_s8_inputs(cuda_device, nq, d, cap, saturated)
+        got = cs.bmax_s8_t(*s8)
+        assert tuple(got.shape) == (cap // 128, nq)
+        _card_match(got, cs.bmax_s8_t_plain(*s8), rtol=0, atol=0)
+        assert torch.equal(got, cs.bmax_s8(*s8).T)
+    if saturated:
+        return
     for emb in _float_corpora(e8, ebf):
         got = cs.bmax_t(emb, mult, add, q)
         assert bool(torch.isneginf(got[-1]).all())
         _card_match(got, cs.bmax_t_plain(emb, mult, add, q), rtol=1e-5, atol=1e-5)
         assert torch.equal(got, cs.bmax(emb, mult, add, q).T)
+
+
+@pytest.mark.cuda
+def test_card_s8_rejects_misaligned_queries(cuda_device):
+    """The s8 kernels read 16 query bytes at a time, so a query view that
+    does not start on 16 bytes is refused, not read misaligned."""
+    e8, _, _, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=2)
+    q_off = torch.zeros(2 * 64 + 1, dtype=torch.int8, device=cuda_device)[1:].view(2, 64)
+    q_off.copy_(q8)
+    for fn in (cs.bmax_s8, cs.scores_matrix_s8, cs.bmax_s8_t):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(e8, mult, add, q_off, qs)
 
 
 @pytest.mark.cuda
