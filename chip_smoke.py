@@ -12,20 +12,25 @@ public entry points:
    card.  The eight stage-1 kernels at the main path's shape (cap 2^20,
    D 256, Q 1 and 32), a ragged one (cap 65,536, D 64, Q 5) and a wide one
    (cap 16,384, D 2048, Q 40, which takes two launches), with their times
-   beside their bounds at Q 1 and 32; the s8 kernels must match bit for
-   bit, and the corpus-major kernels must equal the query-major ones
-   transposed.  The six tensor-core kernels are also timed at Q 1, 2, 4,
-   8, 16 and 32, each time beside its bound (``bmax``, ``bmax_t`` and
+   beside their bounds at Q 1 and 32; the s8 and int4 kernels must match
+   bit for bit, and the corpus-major kernels must equal the query-major
+   ones transposed.  The eight stage-1 kernels are also timed at Q 1, 2,
+   4, 8, 16 and 32, each time beside its bound (``bmax``, ``bmax_t`` and
    ``scores_matrix`` over int8 and bf16 rows, ``bmax_s8``, ``bmax_s8_t``
-   and ``scores_matrix_s8`` over int8 rows), and at Q=32 ``scores_matrix``
-   and ``scores_matrix_s8`` with bf16 output beside ``torch.matmul`` and
-   ``torch._int_mm`` of the same operands.  The
+   and ``scores_matrix_s8`` over int8 rows, ``bmax_s4`` and
+   ``scores_matrix_s4`` over the packed int4 rows of the same corpus), and
+   at Q=32 ``scores_matrix`` and ``scores_matrix_s8`` with bf16 output
+   beside ``torch.matmul`` and ``torch._int_mm`` of the same operands.  The
    two streaming searches at cap 65,536 x 64 and at 2^20 x 256 with
    1,000,000 live rows, Q 1, 8 and 40 (two launches), k 10, and with fewer
    live rows than k: scores within 1e-5, ids equal where scores differ;
 3. the README quick start at its own size (10k docs x 768, cosine):
    scorer fit + score, ``set_dewi_scores``, ``build``, ``search``, a
-   save/load round trip and an eta sweep, checked against numpy;
+   save/load round trip and an eta sweep, checked against numpy; then
+   four indexes at dims their kernels do not take (int8 at D 100, with and
+   without int8 queries, int4 at D 48, exact bf16 at D 100; 33,000 docs,
+   so capacity 65,536): each searched at Q 5 and 40 with no kernel
+   launched, equal to the same index with ``use_pallas=False``;
 4. the bench protocol at 1M docs x 256 (cap 2^20), k=10, through
    ``DewiIndex``: exact f32 (the recall reference), exact bf16, int8, int4,
    int4 without block-max selection, and int8 with int8 queries, unfused
@@ -216,10 +221,10 @@ def kernel_cases(x: dict) -> dict:
         "bmax_s8_t": (lambda: cs.bmax_s8_t(*s8), lambda: cs.bmax_s8_t_plain(*s8),
                       lambda: torch._int_mm(x["e8"], q8_pad.T), 0.0, 0.0,
                       *stage1_cost(cap, d, nq, d, True, bmax_out)),
-        "bmax_s4": (lambda: cs.bmax_s4(*s4), lambda: cs.bmax_s4_plain(*s4), None, 1e-6, 0.0,
+        "bmax_s4": (lambda: cs.bmax_s4(*s4), lambda: cs.bmax_s4_plain(*s4), None, 0.0, 0.0,
                     *stage1_cost(cap, d, nq, d // 2, True, bmax_out)),
         "scores_matrix_s4": (lambda: cs.scores_matrix_s4(*s4),
-                             lambda: cs.scores_matrix_s4_plain(*s4), None, 1e-6, 0.0,
+                             lambda: cs.scores_matrix_s4_plain(*s4), None, 0.0, 0.0,
                              *stage1_cost(cap, d, nq, d // 2, True, full_out)),
         "bmax": (lambda: cs.bmax(x["e8"], x["m8"], x["add"], x["q"]),
                  lambda: cs.bmax_plain(x["e8"], x["m8"], x["add"], x["q"]),
@@ -245,10 +250,11 @@ def compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_frac: float
 
 
 def stage1_sweep(x: dict, reps: int = 50) -> dict:
-    """The six tensor-core kernels at each Q of ``SWEEP_Q``: ``bmax``,
+    """The eight stage-1 kernels at each Q of ``SWEEP_Q``: ``bmax``,
     ``bmax_t`` and ``scores_matrix`` over the int8 and the bf16 rows of
     ``x``, ``bmax_s8``, ``bmax_s8_t`` and ``scores_matrix_s8`` over its int8
-    rows.  Keyed ``kernel/rows``, each ``{"ms": {Q: CUDA-event median},
+    rows, ``bmax_s4`` and ``scores_matrix_s4`` over its packed int4 rows.
+    Keyed ``kernel/rows``, each ``{"ms": {Q: CUDA-event median},
     "bound_ms": {Q: least time}}``.  At the largest Q also ``scores_matrix``
     over bf16 rows and ``scores_matrix_s8`` with ``out_dtype=torch.bfloat16``
     beside ``torch.matmul`` and ``torch._int_mm`` of the same operands (the
@@ -280,6 +286,10 @@ def stage1_sweep(x: dict, reps: int = 50) -> dict:
                             ("bmax_s8_t", cs.bmax_s8_t, 4 * cap // 128),
                             ("scores_matrix_s8", cs.scores_matrix_s8, 4 * cap)):
         sweep(f"{name}/int8", lambda nq: fn(x["e8"], x["m8"], add, *q8[nq]), d, True, per_q)
+    for name, fn, per_q in (("bmax_s4", cs.bmax_s4, 4 * cap // 128),
+                            ("scores_matrix_s4", cs.scores_matrix_s4, 4 * cap)):
+        sweep(f"{name}/int4", lambda nq: fn(x["p4"], x["m4"], add, *q8[nq]), d // 2, True,
+              per_q)
 
     last = SWEEP_Q[-1:]
     qbf, ebf_t = qf[last[0]].to(torch.bfloat16), x["ebf"].T
@@ -502,6 +512,46 @@ def phase_quickstart() -> None:
     check(all(a <= b + 1e-6 for a, b in zip(means, means[1:])) and means[0] < means[-1],
           f"quickstart: eta sweep not rising {means}")
     log("quickstart eta sweep mean top-10 dewi: " + json.dumps([round(m, 4) for m in means]))
+
+
+def phase_off_grid() -> None:
+    """Indexes at dims their stage-1 kernels do not take: the index gates
+    route them to the plain route before any launch, so they search
+    without raising and launch no kernel, and return what the same index
+    with ``use_pallas=False`` returns."""
+    from dewi_tpu_torch import DewiIndex
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    rng = np.random.default_rng(3)
+    n = 33_000
+    ids = [str(i) for i in range(n)]
+    pay = np.abs(rng.normal(size=(n, 8))).astype(np.float32)
+    for backend, kw, d, kind in (("int8", {}, 100, "int8"),
+                                 ("int8", {"int8_queries": True}, 100, "s8"),
+                                 ("int4", {}, 48, "s4"),
+                                 ("exact", {"dtype": torch.bfloat16}, 100, "bf16")):
+        check(not cs.kernel_takes(kind, d, torch.device("cuda")), f"{kind} takes D={d}")
+        emb = rng.normal(size=(n, d)).astype(np.float32)
+        q = torch.from_numpy(rng.normal(size=(40, d)).astype(np.float32)).cuda()
+        idx = DewiIndex(dim=d, backend=backend, **kw)
+        plain = DewiIndex(dim=d, backend=backend, use_pallas=False, **kw)
+        for ix in (idx, plain):
+            ix.add_batch(ids, emb, pay)
+            ix.build()
+        check(idx._backend.store.capacity == 65536, "off-grid: capacity")
+        for nq in (5, 40):
+            cs.reset_launch_counts()
+            s, i = idx.search_batch(q[:nq], k=K)
+            sync()
+            launched = sum(cs.launch_counts.values())
+            s_p, i_p = plain.search_batch(q[:nq], k=K)
+            check(launched == 0, f"off-grid {backend} {kw} D={d}: {launched} launches")
+            check(bool(torch.isfinite(s).all()) and s.shape == (nq, K)
+                  and torch.equal(s, s_p) and torch.equal(i, i_p),
+                  f"off-grid {backend} {kw} D={d} Q={nq}: differs from the plain route")
+        log(f"off-grid dim: {backend} {json.dumps({k: str(v) for k, v in kw.items()})} "
+            f"D={d}: searched at Q 5 and 40 on the plain route, no launch")
+    cs.reset_launch_counts()
 
 
 # ---- phase 4: bench protocol at 1M x 256 --------------------------------------
@@ -1015,6 +1065,7 @@ def main() -> int:
     kernels = phase_kernels()
     kernels.update(phase_stream_kernels())
     phase_quickstart()
+    phase_off_grid()
     launches = phase_bench()
 
     line = []

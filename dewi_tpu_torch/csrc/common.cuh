@@ -1,6 +1,6 @@
 // Helpers shared by the search kernels (search_kernels.cu, stream_kernels.cu):
-// the row-tile geometry, cp.async staging, the tensor-core primitives and
-// the shared-memory opt-in.
+// the row-tile geometry, cp.async staging, the tensor-core primitives, the
+// row unpacks and the shared-memory opt-in.
 
 #pragma once
 
@@ -115,6 +115,17 @@ __device__ __forceinline__ uint32_t s8_halves_to_bf16x2(uint32_t p) {
 __device__ __forceinline__ void s8x4_to_bf16x4(uint32_t w, uint32_t& lo, uint32_t& hi) {
   lo = s8_halves_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4140));
   hi = s8_halves_to_bf16x2(__byte_perm(w, 0x43434343u, 0x4342));
+}
+
+// One nibble plane of four plane-packed int4 bytes (one word) as four s8,
+// each 16 times its value: the high nibbles (signed) are b & 0xF0 as they
+// sit; the low nibbles (biased by 8) are (b << 4) ^ 0x80, since
+// 16 * ((b & 15) - 8) = ((b & 15) << 4) - 128.  Exact: 16 * [-8, 7] is
+// [-128, 112].  One logic operation (high) or a shift and one (low) per
+// word, where the sign extension of the values themselves takes a packed
+// subtract.
+__device__ __forceinline__ uint32_t nibble_plane16(uint32_t w, bool low) {
+  return low ? ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u : w & 0xF0F0F0F0u;
 }
 
 // Sixteen int8 values (four words) to f32.

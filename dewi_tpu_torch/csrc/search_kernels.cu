@@ -29,9 +29,9 @@
 //     tensor cores (mma m16n8k32 s8 x s8 -> s32) over the bytes of the
 //     query and the row as they are stored;
 //   * s8 queries over nibble-packed int4 rows: the exact int32 sum of
-//     s8 x s4, by __dp4a over unpacked s8 quads.  Byte j of a row holds dim
-//     j in its high nibble (signed) and dim j + D/2 in its low nibble
-//     (biased by 8).
+//     s8 x s4, on the same tensor cores after an unpack in registers.
+//     Byte j of a row holds dim j in its high nibble (signed) and dim
+//     j + D/2 in its low nibble (biased by 8).
 // The epilogue keeps the TPU kernel's association, with the multiply-add
 // fused into one rounding (q_scale * mult is rounded first), as XLA on the
 // CPU contracts the Pallas kernels' epilogue; the plain PyTorch versions in
@@ -43,52 +43,55 @@
 // is that of the device-memory bytes: the corpus, mult and add read once,
 // the output written once.  On the CUDA cores that holds only for a few
 // queries (32 multiply-adds per element are 0.26 ms of f32 work at 2^20 x
-// 256, three times the memory time, and 2.1 G __dp4a at Q=32 are 0.15-0.2
-// ms of issue time); on the tensor cores the same product is a fifth (bf16)
-// or a tenth (s8) of the memory time, so every kind over int8 or bf16 rows
-// runs there, and only the int4 kinds still use __dp4a.
+// 256, three times the memory time, and 2.1 G __dp4a at Q=32 were 0.15-0.2
+// ms of issue time for the int4 kinds); on the tensor cores the same
+// product is a fifth (bf16) or a tenth (s8) of the memory time, so every
+// kind runs there.
 //
-// Design, tensor cores (stage1_mma_kernel: dewi_bmax, dewi_scores_matrix,
-// dewi_bmax_t with float queries over int8 or bf16 rows; dewi_bmax_s8,
-// dewi_scores_matrix_s8, dewi_bmax_s8_t with s8 queries over int8 rows).
-// The product runs as mma.sync, m16n8k16 bf16 x bf16 -> f32 for float
-// queries and m16n8k32 s8 x s8 -> s32 for s8 queries, with the corpus rows
-// as the 16-row operand and the queries, zero-padded to tiles of 8, as the
-// 8-column one, so one pass over the rows serves every query of the
-// launch (1, 2 or 4 query tiles) and a score does not depend on how many
-// queries ride with it.
+// Design (stage1_mma_kernel, every entry point).  The product runs as
+// mma.sync, m16n8k16 bf16 x bf16 -> f32 for float queries and m16n8k32
+// s8 x s8 -> s32 for s8 queries, with the corpus rows as the 16-row
+// operand and the queries, zero-padded to tiles of 8, as the 8-column one,
+// so one pass over the rows serves every query of the launch (1, 2 or 4
+// query tiles) and a score does not depend on how many queries ride with
+// it.
 //   * Each warp is a worker of its own: it walks units w, w + W, ... of
-//     the W warps of a persistent grid, 32 rows (two 16-row tiles) at a
-//     time.  For the block max a unit is a whole 128-row sub-block, whose
-//     running maximum the warp keeps in registers, so the block max needs
-//     no shared memory and the main loop no CTA barrier; for the [Q, cap]
-//     f32 store a unit is one 32-row group, so the grid reads and writes
-//     one contiguous range at a time (unit_groups).
-//   * Loads stay in flight while the warp computes: a ring of kStages
-//     slabs (32 rows x 256 bytes, so 8 KB of one contiguous range where a
-//     row is 256 bytes) per warp filled by 16-byte cp.async copies, the
-//     next slab always in flight, across row groups and sub-blocks, so a
-//     group's epilogue overlaps the next one's loads.  One CTA of 8 warps
-//     per SM keeps 64 KB in flight.  Measured on an H100 at 2^20 x 256:
-//     slab rows of 64, 128 and 256 bytes gave 0.147, 0.110 and 0.098 ms at
-//     Q=1 over int8 rows (wide contiguous requests matter more than the
-//     number of warps or stages), 8 warps beat 4, 6, 10 and 12, and a
-//     third stage gained nothing.
+//     the W warps of a persistent grid, one row group at a time: 32 rows
+//     (two 16-row tiles), or 64 (four) of packed int4 rows.  For the block
+//     max a unit is a whole 128-row sub-block, whose running maximum the
+//     warp keeps in registers, so the block max needs no shared memory and
+//     the main loop no CTA barrier; for the [Q, cap] f32 store a unit is
+//     one row group, so the grid reads and writes one contiguous range at a
+//     time (unit_groups).
+//   * Loads stay in flight while the warp computes: a double-buffered ring
+//     of 8 KB slabs per warp (a row group by 256 bytes of int8 or bf16
+//     rows, or by 128 bytes of int4 rows: one contiguous range where a row
+//     is that wide) filled by 16-byte cp.async copies, the next slab always
+//     in flight, across row groups and sub-blocks, so a group's epilogue
+//     overlaps the next one's loads.  One CTA of 8 warps per SM keeps 64 KB
+//     in flight.  Measured on an H100 at 2^20 x 256: slab rows of 64, 128
+//     and 256 bytes gave 0.147, 0.110 and 0.098 ms at Q=1 over int8 rows
+//     (wide contiguous requests matter more than the number of warps or
+//     stages), 8 warps beat 4, 6, 10 and 12, and a third stage gained
+//     nothing.
 //   * A thread feeds its fragments from 16 consecutive bytes of a row (its
 //     quad covers 64): a dot product does not care in which order k runs,
-//     so those bytes take the k slots of 4 (int8 rows, float queries) or 2
-//     (bf16 rows; int8 rows with s8 queries) mma steps and the queries are
-//     laid out once per CTA in the same order, one 16-byte vector per lane,
-//     tile and step pair (bf16 for float queries, s8 bytes as they are).
-//     The 16-byte chunks of a slab row are XOR-swizzled by the row's
-//     parity, which makes both the copies and the reads free of bank
-//     conflicts; a k tail is zero-filled by the copy (zero rows against
-//     zero-padded queries).
+//     so those bytes take the k slots of 4 (int8 rows, float queries; int4
+//     rows), or 2 (bf16 rows; int8 rows with s8 queries) mma steps and the
+//     queries are laid out once per CTA in the same order, one 16-byte
+//     vector per lane, tile and step pair (bf16 for float queries, s8 bytes
+//     as they are; for int4 rows from the two halves of the query that
+//     match the two nibble planes).  The 16-byte chunks of a slab row are
+//     XOR-swizzled by the row's parity, which makes both the copies and the
+//     reads free of bank conflicts; a k tail is zero-filled by the copy
+//     (zero rows against zero-padded queries).
 //   * With float queries int8 rows become bf16 once per element
 //     (s8x4_to_bf16x4: a byte permute, two masks and one packed subtract
 //     per pair, all full rate); every s8 value is exact in bf16, so the
-//     products stay exact in f32.  With s8 queries the row bytes are the
-//     A fragments as they are.
+//     products stay exact in f32.  With s8 queries int8 row bytes are the A
+//     fragments as they are, and int4 rows become s8 once per element, 16
+//     times their value (nibble_plane16: one or two logic operations and a
+//     shift per word), shared by every query tile.
 //   * The epilogue is one fmaf(acc, mult, add) per score, mult/add loaded
 //     a row group ahead (s8 queries: fmaf(float(acc), q_scale * mult,
 //     add), each lane's q_scale loaded once); the maxima of a sub-block are
@@ -97,24 +100,14 @@
 //     query) from the accumulator layout; streaming (.cs) stores and 4 or 6
 //     warps per SM were slower there (an H100 at Q=32).
 //   * RowOperand<KIND> is all that knows the operand type (bytes to
-//     fragments, the query and accumulator types, the mma): the ring, the
-//     walk and the reduction do not.
+//     fragments, where in the query each fragment's values sit, the query
+//     and accumulator types, the mma): the ring, the walk and the reduction
+//     do not.
 // In f32 the tensor cores add the 16 exact products of a step and the
 // running sum in their own order and precision, so a float-query result may
 // differ from an f32 sum in sequence by a few ulps of the largest partial
-// sum; the s32 sum of the s8 kind is exact, so those results equal the
-// plain versions' and the TPU kernels' bit for bit.
-//
-// Design, s8 queries over int4 rows (stage1_kernel: the s4 kinds): one CTA
-// of 128 threads per 128-row sub-block, one thread per corpus row.  Each
-// row is staged into shared memory 256 bytes at a time with 16-byte
-// cp.async copies (neighbouring threads on neighbouring addresses), rows
-// padded by 16 bytes so the per-thread 16-byte reads are free of bank
-// conflicts.
-// All Q <= 32 queries sit in shared memory as s8 and are read as
-// broadcasts; each thread keeps one int32 accumulator per query in
-// registers (exact __dp4a sums).  The sub-block max is a warp-shuffle
-// reduction plus one shared-memory step across the four warps.
+// sum; the s32 sums of the s8 and int4 kinds are exact, so those results
+// equal the plain versions' and the TPU kernels' bit for bit.
 //
 // Where the queries of a launch at dim d do not fit in shared memory,
 // dewi_queries_per_launch tells the wrapper how many do, and it launches
@@ -146,36 +139,58 @@ struct Args {
   long long out_bstride;
 };
 
-// ---- int8 and bf16 rows: mma.sync on the tensor cores ------------------------
+// ---- every kind: mma.sync on the tensor cores --------------------------------
 
 constexpr int kMmaWarps = 8;                  // workers per CTA, fewer where the queries are wide
 constexpr int kMmaMinWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kGroupRows = 32;                // rows a warp multiplies at a time
-constexpr int kMTiles = kGroupRows / 16;      // ... as m16 tiles
-constexpr int kGroups = kSub / kGroupRows;    // row groups of a sub-block
-constexpr int kRingSlabBytes = 256;           // bytes of each row in one ring stage
-constexpr int kStageBytes = kGroupRows * kRingSlabBytes;
-constexpr int kStages = 2;                    // ring depth: kStages - 1 slabs in flight
-constexpr int kRingBytes = kStages * kStageBytes;  // per warp
 constexpr int kChunkBytes = 64;               // bytes of a row a quad feeds per chunk
-constexpr int kSlabChunks = kRingSlabBytes / kChunkBytes;
-constexpr int kSlabVecs = kRingSlabBytes / 16;  // 16-byte vectors of a slab row
 // A lane reads vector 4c + t of rows g, g + 8, ...: eight lanes (two rows,
 // four vectors each) must cover all 32 banks, so vector j of a slab row
 // sits at j ^ kSwizzle * (row & 1).
 constexpr int kSwizzle = 4;
-static_assert(kSlabVecs == 8 || kSlabVecs == 16 || kSlabVecs == 32,
-              "a slab row is 128, 256 or 512 bytes");
 constexpr int kQueryTile = 8;                 // queries per mma column tile
 
-// All that the tensor-core kernel knows of the rows' type: the row elements
-// in a lane's 16 row bytes, how many 16-byte query vectors and mma k-steps
-// they make, how those bytes become the A fragments of step j (rows g and
-// g + 8 of an m16 tile), the query type (f32 rounded to bf16, or s8 as it
-// is), the accumulator, and the mma itself.
+// The ring: kStages stages of 8 KB per warp, kStages - 1 in flight.  A
+// stage is one row group (the rows a warp multiplies at a time) by the
+// bytes of each row it holds (a slab): 32 rows x 256 bytes of int8 or
+// bf16 rows, 64 rows x 128 bytes of packed int4 rows, which are half as
+// wide (128 bytes at D 256), so the copy lanes fill whole rows and a stage
+// is one contiguous range where a row is one slab.  Measured on an H100 at
+// 2^20 x 256, int4 rows: 32 rows x 128 bytes in three stages (the same
+// bytes in flight) was 2.5% slower for bmax_s4 at every Q, in four stages
+// no faster.
+constexpr int kStages = 2;
+constexpr int kStageBytes = 8192;
+constexpr int kRingBytes = kStages * kStageBytes;  // per warp
+__host__ __device__ constexpr int slab_bytes(int kind) { return kind == kS4 ? 128 : 256; }
+__host__ __device__ constexpr int group_rows(int kind) { return kStageBytes / slab_bytes(kind); }
+// 16-byte query vectors per lane, query tile and chunk: a lane's 16 row
+// bytes hold 16 int8 elements (2 vectors of bf16 queries), 8 bf16 (1), 16
+// int8 for s8 queries (1), or 32 int4 (2 vectors of s8 queries).
+__host__ __device__ constexpr int query_vecs(int kind) {
+  return kind == kInt8 || kind == kS4 ? 2 : 1;
+}
+
+// All that the tensor-core kernel knows of the rows' type: how many 16-byte
+// query vectors and mma k-steps a lane's 16 row bytes make, where in the
+// query each vector sits, how those bytes become the A fragments of step j
+// (rows g and g + 8 of an m16 tile), the query type (f32 rounded to bf16,
+// or s8 as it is), the accumulator, and the mma itself.
 template <int KIND>
 struct RowOperand;
+
+// Rows whose elements lie in order, kLaneElems to a lane's 16 bytes: vector
+// v of chunk c for lane t holds query elements (4c + t) * kLaneElems + 8v
+// on (8 bf16 or, with one vector, 16 s8); -1 past d.  d is a multiple of 8
+// (bf16 rows) or 16 (int8 rows), so a vector is all in or all out.
+template <int kLaneElems>
+struct ContiguousQuery {
+  static __device__ __forceinline__ int query_elem(int c, int t, int v, int d) {
+    const int e = (4 * c + t) * kLaneElems + 8 * v;
+    return e < d ? e : -1;
+  }
+};
 
 struct Bf16Mma {
   using Acc = float;
@@ -183,6 +198,18 @@ struct Bf16Mma {
   static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
     mma_bf16_16816(c, a, b0, b1);
+  }
+};
+
+// m16n8k32 s8 x s8 -> s32 without saturation, for s8 queries.  The sum is
+// the operand's kAccShift bits left of the exact int32 dot, and shifted
+// back before the epilogue.
+struct S8Mma {
+  using Acc = int;
+  static constexpr bool kS8Queries = true;
+  static __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma_s8_16832(c, a, b0, b1);
   }
 };
 
@@ -201,8 +228,7 @@ struct WordPairFrag {
 };
 
 template <>
-struct RowOperand<kInt8> : Bf16Mma {
-  static constexpr int kLaneElems = 16;
+struct RowOperand<kInt8> : Bf16Mma, ContiguousQuery<16> {
   static constexpr int kQueryVecs = 2;  // 16 bf16 of the query
   static constexpr int kSteps = 4;
   static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
@@ -215,8 +241,7 @@ struct RowOperand<kInt8> : Bf16Mma {
 };
 
 template <>
-struct RowOperand<kBf16> : Bf16Mma, WordPairFrag {
-  static constexpr int kLaneElems = 8;
+struct RowOperand<kBf16> : Bf16Mma, WordPairFrag, ContiguousQuery<8> {
   static constexpr int kQueryVecs = 1;  // 8 bf16 of the query
   static constexpr int kSteps = 2;
 };
@@ -224,15 +249,42 @@ struct RowOperand<kBf16> : Bf16Mma, WordPairFrag {
 // s8 queries over int8 rows: the bytes go to mma m16n8k32 as they are and
 // the sum is the exact int32 dot, as JAX's.
 template <>
-struct RowOperand<kS8> : WordPairFrag {
-  using Acc = int;
-  static constexpr bool kS8Queries = true;
-  static constexpr int kLaneElems = 16;
+struct RowOperand<kS8> : S8Mma, WordPairFrag, ContiguousQuery<16> {
+  static constexpr int kAccShift = 0;
   static constexpr int kQueryVecs = 1;  // 16 s8 of the query
   static constexpr int kSteps = 2;
-  static __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    mma_s8_16832(c, a, b0, b1);
+};
+
+// s8 queries over plane-packed int4 rows: a lane's 16 row bytes at b are
+// dims b .. b+15 (high nibbles) and D/2 + b .. (low nibbles), unpacked in
+// registers to s8 at 16 times their value (nibble_plane16), which feed mma
+// m16n8k32 in four k-steps: the high plane's words in steps 0-1, the low
+// plane's in 2-3, each in WordPairFrag order.  The query vectors match:
+// vector 0 at element b, vector 1 at D/2 + b, zeros where b is past D/2
+// (also where the ring zero-filled a k tail, whose zero bytes read as -8
+// in the low plane).  The sum is 16 times the exact int32 dot and below
+// 2^31 (|dot| <= 128 * 8 * D, and the queries of a launch fit in shared
+// memory only far below D = 2^17), so shifting it right by 4 gives the dot
+// exactly, as JAX's.
+template <>
+struct RowOperand<kS4> : S8Mma {
+  static constexpr int kAccShift = 4;
+  static constexpr int kQueryVecs = 2;
+  static constexpr int kSteps = 4;
+  static __device__ __forceinline__ int query_elem(int c, int t, int v, int d) {
+    const int b = (4 * c + t) * 16;
+    return b < (d >> 1) ? b + v * (d >> 1) : -1;
+  }
+  static __device__ __forceinline__ void a_frag(const uint4& lo, const uint4& hi, int j,
+                                                uint32_t (&a)[4]) {
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
+    const int w = 2 * (j & 1);
+    const bool low = j >= 2;
+    a[0] = nibble_plane16(wl[w], low);
+    a[2] = nibble_plane16(wl[w + 1], low);
+    a[1] = nibble_plane16(wh[w], low);
+    a[3] = nibble_plane16(wh[w + 1], low);
   }
 };
 
@@ -241,14 +293,14 @@ struct RowOperand<kS8> : WordPairFrag {
 // per warp.
 __host__ __device__ constexpr size_t mma_query_bytes(int kind, int nt, int row_bytes) {
   return static_cast<size_t>(nt) * ((row_bytes + kChunkBytes - 1) / kChunkBytes) *
-         (kind == kInt8 ? 2 : 1) * 32 * 16;
+         query_vecs(kind) * 32 * 16;
 }
 
 // Row groups in a warp's unit of work.  Walking one row group at a time
 // made the [Q, cap] store 2% faster than whole sub-blocks with f32 out and
 // 1% slower with bf16 out (an H100 at Q=32).
-__host__ __device__ constexpr int unit_groups(bool bmax, int out_bf16) {
-  return bmax || out_bf16 ? kGroups : 1;
+__host__ __device__ constexpr int unit_groups(int kind, bool bmax, int out_bf16) {
+  return bmax || out_bf16 ? kSub / group_rows(kind) : 1;
 }
 
 // The warps of a CTA at this query size: as many rings as fit beside the
@@ -264,15 +316,22 @@ template <int KIND, bool BMAX, int NT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
                   const float* __restrict__ qf,      // [nq, d] f32 (float kinds)
-                  const int8_t* __restrict__ q8,     // [nq, d] s8 (kS8)
-                  const float* __restrict__ qscale,  // [nq] (kS8)
+                  const int8_t* __restrict__ q8,     // [nq, d] s8 (kS8, kS4)
+                  const float* __restrict__ qscale,  // [nq] (kS8, kS4)
                   const float* __restrict__ mult, const float* __restrict__ add,
                   void* __restrict__ out, int out_bf16, int nq, int d, long long cap,
                   long long out_qstride, long long out_bstride) {
   using Op = RowOperand<KIND>;
   using Acc = typename Op::Acc;
   constexpr int QV = Op::kQueryVecs;
-  constexpr int kLaneElems = Op::kLaneElems;  // row elements in a lane's 16 bytes
+  static_assert(QV == query_vecs(KIND), "query_vecs sizes the staged queries");
+  constexpr int kGroupRows = group_rows(KIND);
+  constexpr int kMTiles = kGroupRows / 16;  // m16 tiles of a row group
+  constexpr int kSlabRowBytes = slab_bytes(KIND);
+  constexpr int kSlabChunks = kSlabRowBytes / kChunkBytes;
+  constexpr int kSlabVecs = kSlabRowBytes / 16;  // 16-byte vectors of a slab row
+  static_assert(kSlabVecs == 8 || kSlabVecs == 16 || kSlabVecs == 32,
+                "a slab row is 128, 256 or 512 bytes");
   extern __shared__ __align__(16) uint8_t smem[];
   uint4* qfrag = reinterpret_cast<uint4*>(smem);
 
@@ -284,12 +343,11 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   const int nchunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
 
   // Stage the queries once per CTA in the order the lanes read them: vector
-  // v of lane (g, t) for tile nt and chunk c holds elements (4c + t) *
-  // kLaneElems + 8v .. of query 8 nt + g, zeros past nq and past d.  Float
-  // queries are rounded to bf16 as the TPU kernel casts them before the
-  // dot; s8 queries are their bytes (16-byte aligned, as the wrapper
-  // checks).  d is a multiple of 8 (bf16 rows) or 16 (int8 rows), so a
-  // vector is all in or all out.
+  // v of lane (g, t) for tile nt and chunk c holds the elements of query
+  // 8 nt + g from Op::query_elem(c, t, v, d) on, zeros past nq and where
+  // that is -1.  Float queries are rounded to bf16 as the TPU kernel casts
+  // them before the dot; s8 queries are their bytes (16-byte aligned, as
+  // the wrapper checks).
   for (int i = tid; i < NT * nchunks * QV * 32; i += blockDim.x) {
     const int ln = i & 31;
     int r = i >> 5;
@@ -297,9 +355,9 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     r /= QV;
     const int c = r % nchunks;
     const int q = (r / nchunks) * kQueryTile + (ln >> 2);
-    const int e0 = (c * 4 + (ln & 3)) * kLaneElems + v * 8;
+    const int e0 = Op::query_elem(c, ln & 3, v, d);
     uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (q < nq && e0 < d) {
+    if (q < nq && e0 >= 0) {
       if constexpr (Op::kS8Queries) {
         w = *reinterpret_cast<const uint4*>(q8 + static_cast<long long>(q) * d + e0);
       } else {
@@ -321,14 +379,14 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   // sub-block where it keeps the block max, one row group where it stores
   // [Q, cap] f32, so that there the warps of the grid read and write one
   // contiguous range at a time.
-  const int ugroups = unit_groups(BMAX, out_bf16);
+  const int ugroups = unit_groups(KIND, BMAX, out_bf16);
   const int urows = ugroups * kGroupRows;
   uint8_t* ring = smem + mma_query_bytes(KIND, NT, row_bytes) + warp * kRingBytes;
   const long long nunits = cap / urows;
   const int cta_warps = blockDim.x >> 5;
   const int nwarps = gridDim.x * cta_warps;
   const int wid = blockIdx.x * cta_warps + warp;
-  const int nslab = (row_bytes + kRingSlabBytes - 1) / kRingSlabBytes;
+  const int nslab = (row_bytes + kSlabRowBytes - 1) / kSlabRowBytes;
   const long long mine = wid < nunits ? (nunits - wid + nwarps - 1) / nwarps : 0;
   const long long total = mine * ugroups * nslab;  // slabs this warp walks
 
@@ -339,9 +397,9 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   int p_g = 0, p_s = 0;
   const int p_row = lane / kSlabVecs;
   const int p_vec = lane % kSlabVecs;
-  const int p_dst = p_row * kRingSlabBytes + ((p_vec ^ ((p_row & 1) * kSwizzle)) << 4);
+  const int p_dst = p_row * kSlabRowBytes + ((p_vec ^ ((p_row & 1) * kSwizzle)) << 4);
   auto fetch = [&](int stage) {
-    const int col = p_s * kRingSlabBytes + p_vec * 16;
+    const int col = p_s * kSlabRowBytes + p_vec * 16;
     if (col < nchunks * kChunkBytes) {            // the chunks that are read
       const int nbytes = col < row_bytes ? 16 : 0;  // a k tail is zero-filled
       const uint8_t* src =
@@ -349,7 +407,7 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       uint8_t* dst = ring + stage * kStageBytes + p_dst;
 #pragma unroll
       for (int i = 0; i < kGroupRows / kCopyRows; ++i) {
-        cp_async16_zfill(dst + i * kCopyRows * kRingSlabBytes,
+        cp_async16_zfill(dst + i * kCopyRows * kSlabRowBytes,
                          src + static_cast<long long>(i) * kCopyRows * row_bytes, nbytes);
       }
     }
@@ -407,15 +465,15 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     cp_async_commit();
 
     const uint8_t* st = ring + stage * kStageBytes;
-    const int left = row_bytes - c_s * kRingSlabBytes;  // bytes of the row from this slab on
-    const int nc = left >= kRingSlabBytes ? kSlabChunks : (left + kChunkBytes - 1) / kChunkBytes;
+    const int left = row_bytes - c_s * kSlabRowBytes;  // bytes of the row from this slab on
+    const int nc = left >= kSlabRowBytes ? kSlabChunks : (left + kChunkBytes - 1) / kChunkBytes;
     for (int c = 0; c < nc; ++c) {
       // 16 bytes of rows g, g + 8, ... of the group and the matching queries.
       uint4 rows[2 * kMTiles];
 #pragma unroll
       for (int i = 0; i < 2 * kMTiles; ++i) {
         rows[i] = *reinterpret_cast<const uint4*>(
-            st + (8 * i + g) * kRingSlabBytes + (((4 * c + t) ^ ((g & 1) * kSwizzle)) << 4));
+            st + (8 * i + g) * kSlabRowBytes + (((4 * c + t) ^ ((g & 1) * kSwizzle)) << 4));
       }
       uint32_t qw[NT][4 * QV];
       const uint4* qsrc = qfrag + (c_s * kSlabChunks + c) * QV * 32 + lane;
@@ -462,7 +520,8 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
         for (int e = 0; e < 4; ++e) {
           const float mr = m[2 * mt + (e >> 1)], ar = a[2 * mt + (e >> 1)];
           if constexpr (Op::kS8Queries) {
-            v[e] = __fmaf_rn(__int2float_rn(acc[mt][nt][e]), __fmul_rn(qsc[nt][e & 1], mr), ar);
+            v[e] = __fmaf_rn(__int2float_rn(acc[mt][nt][e] >> Op::kAccShift),
+                             __fmul_rn(qsc[nt][e & 1], mr), ar);
           } else {
             v[e] = __fmaf_rn(acc[mt][nt][e], mr, ar);
           }
@@ -531,7 +590,7 @@ int launch_mma_nt(const Args& a, cudaStream_t stream) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, warps * 32, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long long units = a.cap / (unit_groups(BMAX, a.out_bf16) * kGroupRows);
+  const long long units = a.cap / (unit_groups(KIND, BMAX, a.out_bf16) * group_rows(KIND));
   const long long want = (units + warps - 1) / warps;
   const long long held = static_cast<long long>(sms) * per_sm;
   const dim3 grid(static_cast<unsigned>(want < held ? want : held));
@@ -550,145 +609,6 @@ int launch_mma(const Args& a, void* stream) {
   if (a.nq <= 1 * kQueryTile) return launch_mma_nt<KIND, BMAX, 1>(a, st);
   if (a.nq <= 2 * kQueryTile) return launch_mma_nt<KIND, BMAX, 2>(a, st);
   if (a.nq <= 4 * kQueryTile) return launch_mma_nt<KIND, BMAX, 4>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---- s8 queries over int4 rows: exact __dp4a sums on the CUDA cores --------
-
-template <int KIND, bool BMAX, int QT>
-__global__ void __launch_bounds__(kThreads)
-stage1_kernel(const uint8_t* __restrict__ emb, int row_bytes,
-              const int8_t* __restrict__ q8,      // [nq, d] s8
-              const float* __restrict__ qscale,   // [nq]
-              const float* __restrict__ mult, const float* __restrict__ add,
-              void* __restrict__ out, int out_bf16, int nq, int d,
-              long long cap, long long out_qstride, long long out_bstride) {
-  static_assert(KIND == kS4, "the int8 and bf16 row kinds run on the tensor cores");
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float red[QT][kThreads / 32];
-  uint8_t* tile = smem;
-  int8_t* qs8 = reinterpret_cast<int8_t*>(smem + kTileBytes);
-
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kSub;
-  const long long row = row0 + tid;
-
-  // Stage the queries, zero-padded to QT rows.
-  for (int i = tid; i < QT * d; i += kThreads) {
-    qs8[i] = (i / d) < nq ? q8[i] : static_cast<int8_t>(0);
-  }
-
-  int iacc[QT];
-#pragma unroll
-  for (int qi = 0; qi < QT; ++qi) iacc[qi] = 0;
-
-  const uint8_t* my = tile + tid * kStride;
-  for (int s0 = 0; s0 < row_bytes; s0 += kSlabBytes) {
-    const int sb = min(kSlabBytes, row_bytes - s0);
-    const int cpr = sb / 16;  // 16-byte chunks per row in this slab
-    stage_slab(tile, emb, row0, row_bytes, s0, sb, tid);
-
-    for (int c = 0; c < cpr; ++c) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(my + c * 16);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      const int byte0 = s0 + c * 16;
-      // hi = signed high nibble (dims byte0..+15), lo = low nibble - 8
-      // (dims D/2 + byte0..+15), four s8 lanes per 32-bit word.
-      uint32_t hq[4], lq[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        hq[k] = __vsub4(((w[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-        lq[k] = __vsub4(w[k] & 0x0F0F0F0Fu, 0x08080808u);
-      }
-#pragma unroll
-      for (int qi = 0; qi < QT; ++qi) {
-        const int4 a = *reinterpret_cast<const int4*>(qs8 + qi * d + byte0);
-        const int4 b = *reinterpret_cast<const int4*>(qs8 + qi * d + (d >> 1) + byte0);
-        int acc = iacc[qi];
-        acc = __dp4a(static_cast<int>(hq[0]), a.x, acc);
-        acc = __dp4a(static_cast<int>(hq[1]), a.y, acc);
-        acc = __dp4a(static_cast<int>(hq[2]), a.z, acc);
-        acc = __dp4a(static_cast<int>(hq[3]), a.w, acc);
-        acc = __dp4a(static_cast<int>(lq[0]), b.x, acc);
-        acc = __dp4a(static_cast<int>(lq[1]), b.y, acc);
-        acc = __dp4a(static_cast<int>(lq[2]), b.z, acc);
-        acc = __dp4a(static_cast<int>(lq[3]), b.w, acc);
-        iacc[qi] = acc;
-      }
-    }
-  }
-
-  const float m = mult[row];
-  const float a = add[row];
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int qi = 0; qi < QT; ++qi) {
-    const float qs = qscale[qi < nq ? qi : 0];
-    float v = __fmaf_rn(__int2float_rn(iacc[qi]), __fmul_rn(qs, m), a);
-    if constexpr (BMAX) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
-      }
-      if (lane == 0) red[qi][warp] = v;
-    } else if (qi < nq) {
-      const long long o = static_cast<long long>(qi) * cap + row;
-      if (out_bf16) {
-        reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-      } else {
-        reinterpret_cast<float*>(out)[o] = v;
-      }
-    }
-  }
-  if constexpr (BMAX) {
-    __syncthreads();
-    if (tid < nq) {
-      float v = red[tid][0];
-#pragma unroll
-      for (int w = 1; w < kThreads / 32; ++w) v = fmaxf(v, red[tid][w]);
-      reinterpret_cast<float*>(out)[tid * out_qstride + blockIdx.x * out_bstride] = v;
-    }
-  }
-}
-
-// Dynamic shared memory of one CTA: the row tile and QT staged s8 queries.
-size_t dyn_smem(int qt, int d) { return kTileBytes + static_cast<size_t>(qt) * d; }
-
-bool fits(int qt, int d) {
-  return dyn_smem(qt, d) + sizeof(float) * qt * (kThreads / 32) <= kMaxSmem;
-}
-
-template <int KIND, bool BMAX, int QT>
-int launch_qt(const Args& a, cudaStream_t stream) {
-  static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
-  static std::mutex smem_mu;
-  if (!fits(QT, a.d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = dyn_smem(QT, a.d);
-  auto fn = stage1_kernel<KIND, BMAX, QT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(static_cast<unsigned>(a.cap / kSub));
-  fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.q8, a.qscale, a.mult, a.add,
-      a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int KIND, bool BMAX>
-int launch(const Args& a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.cap <= 0 || a.cap % kSub != 0 || a.row_bytes % 16 != 0 || a.nq < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (a.nq <= 1) return launch_qt<KIND, BMAX, 1>(a, st);
-  if (a.nq <= 2) return launch_qt<KIND, BMAX, 2>(a, st);
-  if (a.nq <= 4) return launch_qt<KIND, BMAX, 4>(a, st);
-  if (a.nq <= 8) return launch_qt<KIND, BMAX, 8>(a, st);
-  if (a.nq <= 16) return launch_qt<KIND, BMAX, 16>(a, st);
-  if (a.nq <= 32) return launch_qt<KIND, BMAX, 32>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -760,7 +680,7 @@ int dewi_scores_matrix_s4(const void* packed, const int8_t* q8,
                           int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
-  return launch<kS4, false>(a, stream);
+  return launch_mma<kS4, false>(a, stream);
 }
 
 // pallas_bmax_s4: as dewi_scores_matrix_s4, out [nq, cap / 128] f32.
@@ -769,23 +689,17 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
                  int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
-  return launch<kS4, true>(a, stream);
+  return launch_mma<kS4, true>(a, stream);
 }
 
-// The most queries one launch takes at dim d (a power of two up to 32):
-// the wrappers launch once per group of this many.  kind: 0 int8 rows with
-// float queries, 1 bf16 rows, 3 int8 rows with s8 queries (these three in
-// whole tiles of 8 queries), 2 packed int4 rows.  0 when not even one query
-// (or one tile) fits.
+// The most queries one launch takes at dim d, in whole tiles of 8 (8, 16
+// or 32): the wrappers launch once per group of this many.  kind: 0 int8
+// rows with float queries, 1 bf16 rows, 2 packed int4 rows, 3 int8 rows
+// with s8 queries.  0 when not even one tile fits.
 int dewi_queries_per_launch(int kind, int d) {
-  if (kind != kS4) {
-    for (int nt = 4; nt >= 1; nt >>= 1) {
-      if (mma_warps(kind, nt, d * (kind == kBf16 ? 2 : 1)) > 0) return nt * kQueryTile;
-    }
-    return 0;
-  }
-  for (int qt = 32; qt >= 1; qt >>= 1) {
-    if (fits(qt, d)) return qt;
+  const int row_bytes = kind == kBf16 ? 2 * d : kind == kS4 ? d / 2 : d;
+  for (int nt = 4; nt >= 1; nt >>= 1) {
+    if (mma_warps(kind, nt, row_bytes) > 0) return nt * kQueryTile;
   }
   return 0;
 }

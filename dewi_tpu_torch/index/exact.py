@@ -3,7 +3,8 @@
 Counterpart of ``dewi_tpu/index/exact.py`` with the same routing gates
 (``_pallas_ok``, ``_blockmax_ok``, ``_fused_bmax_ok``) minus the Mosaic
 probes: bf16-stored cosine indexes run stage 1 in the ``scores_matrix``
-CUDA kernel at Q <= 32; selection defaults to the two-pass block max.
+CUDA kernel at Q <= 32 and at a dim it takes (``kernel_takes``), else the
+plain matmul; selection defaults to the two-pass block max.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from ..ops.cuda_search import BLOCKMAX_SUB, BMAX_BLOCK, MAX_QUERIES, SCORES_BLOCK
+from ..ops.cuda_search import (BLOCKMAX_SUB, BMAX_BLOCK, MAX_QUERIES, SCORES_BLOCK,
+                               kernel_takes)
 from ..ops.similarity import fused_search
 from .base import BaseIndex
 
@@ -51,6 +53,7 @@ class ExactIndex(BaseIndex):
             and self.store.dtype == torch.bfloat16
             and self.store.capacity % SCORES_BLOCK == 0
             and n_queries <= MAX_QUERIES
+            and kernel_takes("bf16", self.dim, self.device)
         )
 
     def _blockmax_ok(self) -> bool:

@@ -1,12 +1,15 @@
 """Quantized index: int8 / int4 corpus scan + f32 refinement.
 
 Counterpart of ``dewi_tpu/index/quantized.py`` with the same routing gates
-(``_pallas_stage1_ok``, ``_fused_bmax_block``) minus the Mosaic probes, so
-every tier takes its kernels: ``bmax``/``scores_matrix`` with float
-queries, ``bmax_s8``/``scores_matrix_s8`` with ``int8_queries``,
-``bmax_s4``/``scores_matrix_s4`` on int4.  Two choices differ from the TPU
-build, neither changing a result: the int4 corpus is always kept packed
-(the CUDA kernels unpack in registers), and there is no 2x stream block
+(``_pallas_stage1_ok``, ``_fused_bmax_block``), where the kernels' shape
+predicate (``cuda_search.kernel_takes``) takes the place of the Mosaic
+probes: every tier takes its kernels, ``bmax``/``scores_matrix`` with
+float queries, ``bmax_s8``/``scores_matrix_s8`` with ``int8_queries``,
+``bmax_s4``/``scores_matrix_s4`` on int4, at every dim they take, and the
+plain route at any other, as the reference falls back to XLA when a probe
+fails.  Two choices differ from the TPU build, neither changing a result:
+the int4 corpus is always kept packed (the CUDA kernels unpack in
+registers; the plain route unpacks it), and there is no 2x stream block
 for Q <= 8 (a TPU block-size choice).
 """
 
@@ -16,7 +19,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..ops.cuda_search import BMAX_BLOCK, MAX_QUERIES, SCORES_BLOCK
+from ..ops.cuda_search import BMAX_BLOCK, MAX_QUERIES, SCORES_BLOCK, kernel_takes
 from ..ops.quantized import quantize_rows, quantize_rows_int4, quantized_search
 from .base import BaseIndex
 from .exact import as_queries
@@ -57,6 +60,11 @@ class QuantizedIndex(BaseIndex):
             "int4_storage": self.int4_storage,
         }
 
+    def _kernel_takes_dim(self) -> bool:
+        """Whether this tier's stage-1 kernels take the index's dim."""
+        kind = "s4" if self.int4_storage else "s8" if self.int8_queries else "int8"
+        return kernel_takes(kind, self.dim, self.device)
+
     def _pallas_stage1_ok(self, n_queries: int) -> bool:
         cap = self.store.capacity
         return (
@@ -64,6 +72,7 @@ class QuantizedIndex(BaseIndex):
             and cap >= SCORES_BLOCK
             and cap % SCORES_BLOCK == 0
             and n_queries <= MAX_QUERIES
+            and self._kernel_takes_dim()
         )
 
     def _fused_bmax_block(self) -> int:
@@ -73,7 +82,8 @@ class QuantizedIndex(BaseIndex):
         32 queries in 32-query groups)."""
         cap = self.store.capacity
         if not (self.blockmax_select and self.use_pallas
-                and cap % BMAX_BLOCK == 0 and cap >= 4 * BMAX_BLOCK):
+                and cap % BMAX_BLOCK == 0 and cap >= 4 * BMAX_BLOCK
+                and self._kernel_takes_dim()):
             return 0
         return BMAX_BLOCK
 

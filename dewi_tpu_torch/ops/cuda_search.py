@@ -20,19 +20,27 @@ wrapper                 replaces (dewi_tpu/ops/pallas_search)   called from     
 ``int8_stream_search``  ``pallas_int8_search`` :239             the same, over the int8 codes    292.0 MB
 ======================  ======================================  ===============================  ============
 
-The six kernels over int8 or bf16 rows compute their product on the
-tensor cores: the float-query ones (``bmax``, ``scores_matrix``,
-``bmax_t``) as ``mma.sync`` m16n8k16 in bf16 with f32 sums, int8 rows
-widened to bf16 exactly by a byte permute, two masks and a packed
-subtract; the s8-query ones (``bmax_s8``, ``scores_matrix_s8``,
-``bmax_s8_t``) as m16n8k32 s8 x s8 with exact int32 sums over the bytes as
-they are.  The rows are the 16-row operand and the queries tiles of 8
-columns, each warp a persistent worker that walks whole 128-row
-sub-blocks behind its own double-buffered ``cp.async`` ring of 32 rows x
-256 bytes.  With the product there they are bound by device-memory bytes
-at every Q <= 32, and one code path serves every Q, so a score does not
-depend on how many queries ride with it.  The int4 kernels keep exact
-``__dp4a`` sums on the CUDA cores, one thread per corpus row.
+The eight stage-1 kernels compute their product on the tensor cores: the
+float-query ones (``bmax``, ``scores_matrix``, ``bmax_t``) as ``mma.sync``
+m16n8k16 in bf16 with f32 sums, int8 rows widened to bf16 exactly by a
+byte permute, two masks and a packed subtract; the s8-query ones over
+int8 rows (``bmax_s8``, ``scores_matrix_s8``, ``bmax_s8_t``) as m16n8k32
+s8 x s8 with exact int32 sums over the bytes as they are, and over packed
+int4 rows (``bmax_s4``, ``scores_matrix_s4``) the same after unpacking
+each nibble plane in registers.  The rows are the 16-row operand and the
+queries tiles of 8 columns, each warp a persistent worker that walks
+128-row sub-blocks behind its own double-buffered ``cp.async`` ring of
+8 KB slabs (32 rows x 256 bytes; 64 rows x 128 bytes of int4 rows).  With the
+product there they are bound by device-memory bytes at every Q <= 32, and
+one code path serves every Q, so a score does not depend on how many
+queries ride with it.
+
+Each kernel takes only some dims (``kernel_takes``): int8 rows a multiple
+of 16, bf16 rows of 8, packed int4 rows of 32, and on the card as many as
+one tile of 8 queries in shared memory.  The index gates ask it before they
+route stage 1 to a kernel, so an index at another dim searches by the
+plain route, as the reference's gates fall back to XLA when its probes
+fail; a wrapper given such a dim on a CUDA tensor raises.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  On a CUDA tensor it launches its kernel on the current
@@ -62,8 +70,9 @@ s8 x s8 dot in f64, which is exact where f32 is not (127^2 * D passes
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +94,10 @@ STREAM_MAX_K = 32       # the kernels keep lists of 32 candidates, one per lane
 STREAM_CHUNK_ROWS = 2048
 # Corpus kinds of dewi_queries_per_launch.
 _KIND_INT8, _KIND_BF16, _KIND_S4, _KIND_S8 = 0, 1, 2, 3
+# kernel_takes' kinds: (dewi_queries_per_launch kind, the multiple the dim
+# must be, so that a row is whole 16-byte copies).
+_KINDS = {"int8": (_KIND_INT8, 16), "bf16": (_KIND_BF16, 8), "s8": (_KIND_S8, 16),
+          "s4": (_KIND_S4, 32)}
 
 launch_counts: Dict[str, int] = {
     "bmax_s4": 0, "scores_matrix_s4": 0, "bmax": 0, "scores_matrix": 0,
@@ -127,6 +140,36 @@ def _check_common(name: str, emb: torch.Tensor, mult: torch.Tensor,
         _require(emb.data_ptr() % 16 == 0, f"{name}: corpus must be 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _queries_per_launch(kind: int, d: int) -> int:
+    return int(_library().dewi_queries_per_launch(kind, d))
+
+
+def kernel_takes(kind: str, d: int, device: Optional[torch.device] = None) -> bool:
+    """Whether the stage-1 kernels of ``kind`` take dim ``d``.
+
+    ``kind``: ``"int8"`` (int8 rows, float queries), ``"bf16"`` (bf16 rows),
+    ``"s8"`` (int8 rows, s8 queries) or ``"s4"`` (packed int4 rows, s8
+    queries; ``d`` is the unpacked dim).  A row must be whole 16-byte
+    copies (a dim that is a multiple of 16, 8, 16 or 32), and on a CUDA
+    ``device`` at least one tile of 8 queries must fit in shared memory.
+    Decided from shapes alone, before any launch: the index gates route by
+    it, and the wrappers raise on a CUDA tensor where it is False.
+    """
+    code, multiple = _KINDS[kind]
+    if d <= 0 or d % multiple:
+        return False
+    return (device is None or torch.device(device).type != "cuda"
+            or _queries_per_launch(code, d) > 0)
+
+
+def _check_takes(name: str, kind: str, d: int, device: torch.device) -> None:
+    if device.type == "cuda":
+        _require(kernel_takes(kind, d, device),
+                 f"{name}: dim {d} must be a multiple of {_KINDS[kind][1]} and "
+                 "fit one tile of 8 queries in shared memory")
+
+
 def _check_float_query(name: str, emb: torch.Tensor, queries: torch.Tensor) -> None:
     _require(emb.dtype in (torch.int8, torch.bfloat16),
              f"{name}: corpus must be int8 or bfloat16, got {emb.dtype}")
@@ -134,10 +177,14 @@ def _check_float_query(name: str, emb: torch.Tensor, queries: torch.Tensor) -> N
              and queries.shape[1] == emb.shape[1],
              f"{name}: queries must be float32 [Q, {emb.shape[1]}], got "
              f"{queries.dtype} {tuple(queries.shape)}")
-    if emb.device.type == "cuda":
-        step = 16 if emb.dtype == torch.int8 else 8
-        _require(emb.shape[1] % step == 0,
-                 f"{name}: dim {emb.shape[1]} must be a multiple of {step}")
+    _check_takes(name, "int8" if emb.dtype == torch.int8 else "bf16", emb.shape[1],
+                 emb.device)
+
+
+def _check_s8_bytes(name: str, q_i8: torch.Tensor) -> None:
+    """The kernels read 16 query bytes at a time."""
+    if q_i8.device.type == "cuda":
+        _require(q_i8.data_ptr() % 16 == 0, f"{name}: queries must be 16-byte aligned")
 
 
 def _check_s4_query(name: str, emb_s4: torch.Tensor, q_i8: torch.Tensor,
@@ -151,8 +198,8 @@ def _check_s4_query(name: str, emb_s4: torch.Tensor, q_i8: torch.Tensor,
     _require(q_scale.dtype == torch.float32
              and tuple(q_scale.shape) == (q_i8.shape[0],),
              f"{name}: q_scale must be float32 [{q_i8.shape[0]}]")
-    if emb_s4.device.type == "cuda":
-        _require(d % 32 == 0, f"{name}: dim {d} must be a multiple of 32")
+    _check_takes(name, "s4", d, emb_s4.device)
+    _check_s8_bytes(name, q_i8)
 
 
 def _check_s8_query(name: str, emb_i8: torch.Tensor, q_i8: torch.Tensor,
@@ -166,9 +213,8 @@ def _check_s8_query(name: str, emb_i8: torch.Tensor, q_i8: torch.Tensor,
     _require(q_scale.dtype == torch.float32
              and tuple(q_scale.shape) == (q_i8.shape[0],),
              f"{name}: q_scale must be float32 [{q_i8.shape[0]}]")
-    if emb_i8.device.type == "cuda":  # the kernels read 16 query bytes at a time
-        _require(d % 16 == 0, f"{name}: dim {d} must be a multiple of 16")
-        _require(q_i8.data_ptr() % 16 == 0, f"{name}: queries must be 16-byte aligned")
+    _check_takes(name, "s8", d, emb_i8.device)
+    _check_s8_bytes(name, q_i8)
 
 
 def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
@@ -195,12 +241,11 @@ def _launch(name: str, fn_name: str, device: torch.device, *args: object) -> Non
         launch_counts[name] += 1
 
 
-def _group(name: str, kind: int, d: int) -> int:
-    """Queries per launch at dim ``d``: MAX_QUERIES unless their shared
-    memory does not fit, then the most that does."""
-    g = int(_library().dewi_queries_per_launch(kind, d))
-    _require(g > 0, f"{name}: dim {d} too wide for one query in shared memory")
-    return min(g, MAX_QUERIES)
+def _group(kind: int, d: int) -> int:
+    """Queries per launch at dim ``d`` (a dim the checks let through):
+    MAX_QUERIES unless their shared memory does not fit, then the most
+    that does."""
+    return min(_queries_per_launch(kind, d), MAX_QUERIES)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -348,7 +393,7 @@ def scores_matrix(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     nq, cap = queries.shape[0], emb.shape[0]
     out = torch.empty((nq, cap), dtype=out_dtype, device=emb.device)
     kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
-    g = _group(name, kind, emb.shape[1])
+    g = _group(kind, emb.shape[1])
     for i in range(0, nq, g):
         q, o = queries[i:i + g], out[i:i + g]
         _launch(name, "dewi_scores_matrix", emb.device, emb.data_ptr(),
@@ -375,7 +420,7 @@ def bmax(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32,
                       device=emb.device)
     kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
-    g = _group(name, kind, emb.shape[1])
+    g = _group(kind, emb.shape[1])
     for i in range(0, nq, g):
         q, o = queries[i:i + g], out[i:i + g]
         _launch(name, "dewi_bmax", emb.device, emb.data_ptr(), int(emb.dtype == torch.bfloat16),
@@ -402,7 +447,7 @@ def scores_matrix_s4(emb_s4: torch.Tensor, mult: torch.Tensor,
         return scores_matrix_s4_plain(emb_s4, mult, add, q_i8, q_scale, out_dtype)
     nq, cap = q_i8.shape[0], emb_s4.shape[0]
     out = torch.empty((nq, cap), dtype=out_dtype, device=emb_s4.device)
-    g = _group(name, _KIND_S4, q_i8.shape[1])
+    g = _group(_KIND_S4, q_i8.shape[1])
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
         _launch(name, "dewi_scores_matrix_s4", emb_s4.device, emb_s4.data_ptr(), q.data_ptr(),
@@ -427,7 +472,7 @@ def bmax_s4(emb_s4: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     nq, cap = q_i8.shape[0], emb_s4.shape[0]
     out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32,
                       device=emb_s4.device)
-    g = _group(name, _KIND_S4, q_i8.shape[1])
+    g = _group(_KIND_S4, q_i8.shape[1])
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
         _launch(name, "dewi_bmax_s4", emb_s4.device, emb_s4.data_ptr(), q.data_ptr(),
@@ -455,7 +500,7 @@ def scores_matrix_s8(emb_i8: torch.Tensor, mult: torch.Tensor,
         return scores_matrix_s8_plain(emb_i8, mult, add, q_i8, q_scale, out_dtype)
     nq, (cap, d) = q_i8.shape[0], emb_i8.shape
     out = torch.empty((nq, cap), dtype=out_dtype, device=emb_i8.device)
-    g = _group(name, _KIND_S8, d)
+    g = _group(_KIND_S8, d)
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
         _launch(name, "dewi_scores_matrix_s8", emb_i8.device, emb_i8.data_ptr(),
@@ -481,7 +526,7 @@ def bmax_s8(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
         return bmax_s8_plain(emb_i8, mult, add, q_i8, q_scale)
     nq, (cap, d) = q_i8.shape[0], emb_i8.shape
     out = torch.empty((nq, cap // BLOCKMAX_SUB), dtype=torch.float32, device=emb_i8.device)
-    g = _group(name, _KIND_S8, d)
+    g = _group(_KIND_S8, d)
     for i in range(0, nq, g):
         q, qs, o = q_i8[i:i + g], q_scale[i:i + g], out[i:i + g]
         _launch(name, "dewi_bmax_s8", emb_i8.device, emb_i8.data_ptr(), q.data_ptr(),
@@ -506,7 +551,7 @@ def bmax_s8_t(emb_i8: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
         return bmax_s8_t_plain(emb_i8, mult, add, q_i8, q_scale)
     nq, (cap, d) = q_i8.shape[0], emb_i8.shape
     out = torch.empty((cap // BLOCKMAX_SUB, nq), dtype=torch.float32, device=emb_i8.device)
-    g = _group(name, _KIND_S8, d)
+    g = _group(_KIND_S8, d)
     for i in range(0, nq, g):  # a group writes columns i .. i+g of out
         q, qs = q_i8[i:i + g], q_scale[i:i + g]
         _launch(name, "dewi_bmax_s8_t", emb_i8.device, emb_i8.data_ptr(), q.data_ptr(),
@@ -532,7 +577,7 @@ def bmax_t(emb: torch.Tensor, mult: torch.Tensor, add: torch.Tensor,
     nq, cap = queries.shape[0], emb.shape[0]
     out = torch.empty((cap // BLOCKMAX_SUB, nq), dtype=torch.float32, device=emb.device)
     kind = _KIND_BF16 if emb.dtype == torch.bfloat16 else _KIND_INT8
-    g = _group(name, kind, emb.shape[1])
+    g = _group(kind, emb.shape[1])
     for i in range(0, nq, g):  # a group writes columns i .. i+g of out
         q = queries[i:i + g]
         _launch(name, "dewi_bmax_t", emb.device, emb.data_ptr(),
@@ -659,7 +704,7 @@ def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
 __all__ = [
     "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES", "BLOCK",
     "STREAM_NEG_INF", "STREAM_MAX_K",
-    "launch_counts", "reset_launch_counts",
+    "launch_counts", "reset_launch_counts", "kernel_takes",
     "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
     "scores_matrix_s8", "bmax_s8", "bmax_t", "bmax_s8_t",
     "stream_search", "int8_stream_search",

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the tensor-core stage-1 kernels of ``dewi_tpu_torch`` over Q.
+"""Time the stage-1 kernels of ``dewi_tpu_torch`` over Q.
 
     python3 scripts/torch_stage1_sweep.py [--root DIR] [--errors] [--no-check]
 
 On one CUDA card, at cap 2^20 x 256: ``bmax``, ``bmax_t`` and
 ``scores_matrix`` over int8 and bf16 rows, ``bmax_s8``, ``bmax_s8_t`` and
-``scores_matrix_s8`` over int8 rows, at Q 1, 2, 4, 8, 16 and 32, each beside
-its bound (CUDA-event medians of 50, ``chip_smoke.stage1_sweep``), after
-holding each against its plain version (the s8 kernels bit for bit).
+``scores_matrix_s8`` over int8 rows, ``bmax_s4`` and ``scores_matrix_s4``
+over the packed int4 rows of the same corpus, at Q 1, 2, 4, 8, 16 and 32,
+each beside its bound (CUDA-event medians of 50,
+``chip_smoke.stage1_sweep``), after holding each against its plain
+version (the s8 and int4 kernels bit for bit).
 ``--root DIR`` takes the package from another checkout
 (``DIR/dewi_tpu_torch``), so that two versions of the kernels can be timed
 in turns on the same card: run parent, change, change, parent.
@@ -15,7 +17,7 @@ in turns on the same card: run parent, change, change, parent.
 32 queries, the largest |kernel - plain| of ``scores_matrix`` and how far
 that is from the tolerance of the checks (rtol 1e-5 plus 1e-5 of the
 largest |plain|; 1.0 would be at the limit), and asserts that the three s8
-kernels equal their plain versions there.  ``--no-check`` times without
+and the two int4 kernels equal their plain versions there.  ``--no-check`` times without
 the comparison (for a kernel deliberately altered to find what it costs).
 Prints the card and one JSON line per row.
 """
@@ -58,6 +60,8 @@ def main() -> int:
 
     s8_kernels = ((cs.bmax_s8, cs.bmax_s8_plain), (cs.bmax_s8_t, cs.bmax_s8_t_plain),
                   (cs.scores_matrix_s8, cs.scores_matrix_s8_plain))
+    s4_kernels = ((cs.bmax_s4, cs.bmax_s4_plain),
+                  (cs.scores_matrix_s4, cs.scores_matrix_s4_plain))
     x = smoke.kernel_inputs(1 << 20, 256, 32, seed=0)
     for nq in () if args.no_check else smoke.SWEEP_Q:
         q = x["q"][:nq].contiguous()
@@ -66,9 +70,12 @@ def main() -> int:
                           cs.bmax_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
             smoke.compare(cs.scores_matrix(emb, mult, x["add"], q),
                           cs.scores_matrix_plain(emb, mult, x["add"], q), 1e-5, 1e-5)
-        s8 = (x["e8"], x["m8"], x["add"], x["q8"][:nq].contiguous(), x["qs"][:nq].contiguous())
-        for fn, plain in s8_kernels:
-            smoke.compare(fn(*s8), plain(*s8), 0.0, 0.0)
+        q8 = (x["q8"][:nq].contiguous(), x["qs"][:nq].contiguous())
+        for rows, mult, kernels in ((x["e8"], x["m8"], s8_kernels),
+                                    (x["p4"], x["m4"], s4_kernels)):
+            for fn, plain in kernels:
+                smoke.compare(fn(rows, mult, x["add"], *q8), plain(rows, mult, x["add"], *q8),
+                              0.0, 0.0)
     for key, row in smoke.stage1_sweep(x).items():
         print(json.dumps({"sweep": key, **row}), flush=True)
     del x
@@ -89,8 +96,10 @@ def main() -> int:
                                   "share_of_tolerance": float((err / lim).max())}),
                       flush=True)
             s8 = (x["e8"], x["m8"], x["add"], x["q8"], x["qs"])
-            for fn, plain in s8_kernels:
-                got, want = fn(*s8), plain(*s8)
+            s4 = (x["p4"], x["m4"], x["add"], x["q8"], x["qs"])
+            for fn, plain, inputs in ([(f, p, s8) for f, p in s8_kernels]
+                                      + [(f, p, s4) for f, p in s4_kernels]):
+                got, want = fn(*inputs), plain(*inputs)
                 torch.cuda.synchronize()
                 smoke.check(torch.equal(got, want), f"{fn.__name__} differs from plain at D={d}")
                 print(json.dumps({"errors": fn.__name__, "D": d, "max_abs_err": 0.0}),

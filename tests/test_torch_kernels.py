@@ -1,22 +1,30 @@
 """Stage-1 kernels of the port against the JAX package's Pallas kernels.
 
 Each plain version in ``dewi_tpu_torch/ops/cuda_search.py`` (what a
-wrapper computes for a CPU tensor) is held against its Pallas function
-run in interpret mode, on the same seeded numpy inputs, with padding rows
-masked through ``add = -inf``.  Tolerances: int4 kernels rtol 1e-6 and s8
-kernels bit for bit (the integer accumulator is exact, the f32 epilogue is
-the same fused association); bf16-dot kernels, the corpus-major ``bmax_t``
-included, rtol 1e-5 and atol 1e-5 of the largest |score| (only the order
-of the f32 sum differs, and its rounding scales with the terms).  The
-quantizers must match bit for bit.  The tensor-core kernels are also held
-at the shapes their tiling makes special: 7, 8, 9, 17 and 33 queries
-(around the 8-query tiles and the 32-query launch); for the float-query
-kernels dims 16, 48 and, for bf16 rows, 264 (a multiple of 8 but not of
-16), over three sub-blocks of which the last is all padding; for the s8
-kernels dims 16, 48 (not a multiple of the 64-byte chunk) and 272 (a
-16-byte second slab), over 1024 rows whose last sub-block is all padding,
-and one saturated case (all values +-127 at D 2048), where only an exact
-integer sum, not an f32 one, gives the reference's scores.
+wrapper computes for a CPU tensor) is held against its Pallas function run
+in interpret mode, on the same seeded numpy inputs, with padding rows
+masked through ``add = -inf``.  Tolerances: int4 and s8 kernels bit for bit
+(the integer accumulator is exact, the f32 epilogue is the same fused
+association); bf16-dot kernels, the corpus-major ``bmax_t`` included, rtol
+1e-5 and atol 1e-5 of the largest |score| (only the order of the f32 sum
+differs, and its rounding scales with the terms).  The quantizers must
+match bit for bit.  The tensor-core kernels are also held at the shapes
+their tiling makes special: 7, 8, 9, 17 and 33 queries (around the 8-query
+tiles and the 32-query launch); for the float-query kernels dims 16, 48
+and, for bf16 rows, 264 (a multiple of 8 but not of 16), over three
+sub-blocks of which the last is all padding; for the s8 kernels dims 16,
+48 (not a multiple of the 64-byte chunk) and 272 (a 16-byte second slab),
+for the int4 kernels dims 32, 96 and 288 (packed rows of 16, 48 and 144
+bytes: a part chunk, and a 16-byte second slab of 128-byte slab rows),
+over 1024 rows whose last sub-block is all padding; one saturated s8 case
+(all values +-127 at D 2048), where only an exact integer sum, not an f32
+one, gives the reference's scores, and one saturated int4 case (every byte
+value in the packed rows, queries +-127, D 2048).
+
+``kernel_takes``, the kernels' shape predicate, is held at dims on and off
+each kind's grid, and an index at a dim off it (int8 at D 100, with and
+without int8 queries, int4 at D 48, exact bf16 at D 100) is held to call
+no kernel wrapper and to return the JAX package's answers.
 
 The tests marked ``cuda`` hold each CUDA kernel against its plain version
 and skip without a card.  They import no JAX, so on the card they run
@@ -77,6 +85,9 @@ TILE_EDGE_CAP = 384  # three sub-blocks, walked in one block by the Pallas funct
 # second slab of 256-byte rows.
 S8_TILE_EDGE_SHAPES = [(nq, d) for nq in (7, 8, 9, 17, 33) for d in (16, 48, 272)]
 S8_TILE_EDGE_CAP = 1024  # the smallest corpus pallas_bmax_s8_t takes; 8 sub-blocks
+# ... and of the int4 kernels: packed rows of 16 bytes (a part chunk), 48
+# and 144 (a 16-byte second slab of 128-byte slab rows).
+S4_TILE_EDGE_SHAPES = [(nq, d) for nq in (7, 8, 9, 17, 33) for d in (32, 96, 288)]
 
 
 def _saturated_s8(nq=5, cap=S8_TILE_EDGE_CAP, d=2048, seed=44):
@@ -94,6 +105,28 @@ def _saturated_s8(nq=5, cap=S8_TILE_EDGE_CAP, d=2048, seed=44):
     add[cap - 150:] = -np.inf
     qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
     return emb, mult, add, (127 * qsign).astype(np.int8), qs
+
+
+def _saturated_s4(nq=5, cap=S8_TILE_EDGE_CAP, d=2048, seed=47):
+    """Packed int4 rows against s8 queries of +-127.  In the first quarter
+    of the rows every nibble is an extreme (7 or -8) of the sign of a
+    query's matching dim, so |acc| comes near 127 * 8 * D; in the rest
+    row r holds the byte values r, r + 1, ... mod 256, so every byte value
+    sits at every packed column.  The last 150 rows are padding."""
+    rng = np.random.default_rng(seed)
+    d2 = d // 2
+    qsign = rng.choice(np.array([-1, 1], np.int8), size=(nq, d))
+    src = qsign[np.arange(cap) % nq]
+    hi = np.where(src[:, :d2] > 0, 7, -8)
+    lo = np.where(src[:, d2:] > 0, 7, -8)
+    packed = (hi * 16 + lo + 8).astype(np.uint8)
+    cyc = ((np.arange(cap)[:, None] + np.arange(d2)[None, :]) % 256).astype(np.uint8)
+    packed = np.where((np.arange(cap) < cap // 4)[:, None], packed, cyc).view(np.int8)
+    mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
+    add = rng.normal(size=cap).astype(np.float32)
+    add[cap - 150:] = -np.inf
+    qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
+    return packed, mult, add, (127 * qsign).astype(np.int8), qs
 
 
 def _corpus_pair(jnp, emb, bf16_corpus):
@@ -127,7 +160,7 @@ class TestPlainVsPallas:
                                 jnp.asarray(q8), jnp.asarray(qs), block=1024,
                                 interpret=True)
         port = cs.bmax_s4(T(packed), T(mult), T(add), T(q8), T(qs))
-        _assert_match(port, ref, rtol=1e-6, atol=0)
+        _assert_match(port, ref, rtol=0, atol=0)
 
     @pytest.mark.parametrize("nq", [1, 5, 32])
     @pytest.mark.parametrize("bf16_out", [False, True])
@@ -141,7 +174,7 @@ class TestPlainVsPallas:
         port = cs.scores_matrix_s4(T(packed), T(mult), T(add), T(q8), T(qs),
                                    out_dtype=torch.bfloat16 if bf16_out else torch.float32)
         assert port.dtype == (torch.bfloat16 if bf16_out else torch.float32)
-        _assert_match(port, ref, rtol=1e-6, atol=0)
+        _assert_match(port, ref, rtol=0, atol=0)
 
     @pytest.mark.parametrize("nq", [1, 5, 32])
     @pytest.mark.parametrize("bf16_corpus", [False, True])
@@ -296,6 +329,41 @@ class TestPlainVsPallas:
         _assert_match(port, ref, rtol=0, atol=0)
         assert torch.equal(port, cs.bmax_s8(T(emb), T(mult), T(add), T(q8), T(qs)).T)
 
+    @pytest.mark.parametrize("nq,d", S4_TILE_EDGE_SHAPES)
+    def test_bmax_s4_tile_edges(self, jx, nq, d):
+        jnp, ps, _ = jx
+        _, packed, mult, add, _, q8, qs = _inputs(nq, 46, cap=S8_TILE_EDGE_CAP, d=d)
+        ref = ps.pallas_bmax_s4(jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add),
+                                jnp.asarray(q8), jnp.asarray(qs), block=S8_TILE_EDGE_CAP,
+                                interpret=True)
+        port = cs.bmax_s4(T(packed), T(mult), T(add), T(q8), T(qs))
+        assert tuple(port.shape) == (nq, 8) and bool(torch.isneginf(port[:, 7]).all())
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("nq,d", S4_TILE_EDGE_SHAPES)
+    @pytest.mark.parametrize("bf16_out", [False, True])
+    def test_scores_matrix_s4_tile_edges(self, jx, nq, d, bf16_out):
+        jnp, ps, _ = jx
+        _, packed, mult, add, _, q8, qs = _inputs(nq, 47, cap=S8_TILE_EDGE_CAP, d=d)
+        ref = ps.pallas_scores_matrix_s4(
+            jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q8),
+            jnp.asarray(qs), block=S8_TILE_EDGE_CAP, interpret=True,
+            out_dtype=jnp.bfloat16 if bf16_out else jnp.float32)
+        port = cs.scores_matrix_s4(T(packed), T(mult), T(add), T(q8), T(qs),
+                                   out_dtype=torch.bfloat16 if bf16_out else torch.float32)
+        _assert_match(port, ref, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("kernel", ["bmax_s4", "scores_matrix_s4"])
+    def test_s4_saturated(self, jx, kernel):
+        jnp, ps, _ = jx
+        packed, mult, add, q8, qs = _saturated_s4()
+        assert set(np.unique(packed.view(np.uint8))) == set(range(256))
+        ref = getattr(ps, "pallas_" + kernel)(
+            jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add), jnp.asarray(q8),
+            jnp.asarray(qs), block=S8_TILE_EDGE_CAP, interpret=True)
+        port = getattr(cs, kernel)(T(packed), T(mult), T(add), T(q8), T(qs))
+        _assert_match(port, ref, rtol=0, atol=0)
+
     def test_scores_matrix_s8_saturated(self, jx):
         jnp, ps, _ = jx
         emb, mult, add, q8, qs = _saturated_s8()
@@ -379,6 +447,78 @@ class TestWrapperChecks:
         assert sum(cs.launch_counts.values()) == 0
 
 
+# ---- routing by the dim ---------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,d,takes", [
+    ("int8", 96, True), ("int8", 100, False), ("int8", 8, False),
+    ("s8", 256, True), ("s8", 100, False),
+    ("bf16", 104, True), ("bf16", 100, False),
+    ("s4", 64, True), ("s4", 48, False), ("s4", 0, False),
+])
+def test_kernel_takes(kind, d, takes):
+    """The dim rule alone off the card: rows of whole 16-byte copies."""
+    assert cs.kernel_takes(kind, d) is takes
+    assert cs.kernel_takes(kind, d, torch.device("cpu")) is takes
+
+
+# Indexes at a dim their stage-1 kernels do not take: (backend, options,
+# dim, kernel kind).  At 33,000 docs the capacity is 65,536, so the fused
+# block-max gate would engage at a dim the kernels take.
+OFF_GRID_INDEXES = [
+    ("int8", {}, 100, "int8"),
+    ("int8", {"int8_queries": True}, 100, "s8"),
+    ("int4", {}, 48, "s4"),
+    ("exact", {"dtype": torch.bfloat16}, 100, "bf16"),
+]
+OFF_GRID_DOCS = 33_000
+STAGE1_WRAPPERS = ("bmax", "bmax_s4", "scores_matrix", "scores_matrix_s4", "bmax_s8",
+                   "scores_matrix_s8", "bmax_t", "bmax_s8_t")
+
+
+def _off_grid_corpus(d, nq):
+    rng = np.random.default_rng(d)
+    emb = rng.normal(size=(OFF_GRID_DOCS, d)).astype(np.float32)
+    pay = np.abs(rng.normal(size=(OFF_GRID_DOCS, 8))).astype(np.float32)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    return [f"d{i}" for i in range(OFF_GRID_DOCS)], emb, pay, q
+
+
+@pytest.mark.parametrize("backend,kw,d,kind", OFF_GRID_INDEXES)
+def test_off_grid_dim_takes_the_plain_route(jx, monkeypatch, backend, kw, d, kind):
+    """The index gates ask ``kernel_takes``: off its grid every gate is shut,
+    no kernel wrapper is called (a CUDA tensor there would raise), and the
+    plain route returns what the JAX package returns on the same inputs."""
+    from dewi_tpu import DewiIndex as JDewiIndex
+    from dewi_tpu_torch import DewiIndex
+    from test_torch_search import assert_same_topk
+
+    jnp = jx[0]
+    assert not cs.kernel_takes(kind, d)
+    ids, emb, pay, q = _off_grid_corpus(d, 7)
+    calls = []
+    for name in STAGE1_WRAPPERS:
+        fn = getattr(cs, name)
+        monkeypatch.setattr(cs, name,
+                            lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    port = DewiIndex(dim=d, backend=backend, device="cpu", **kw)
+    jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v) for k, v in kw.items()}
+    ref = JDewiIndex(dim=d, backend=backend, **jkw)
+    for ix in (port, ref):
+        ix.add_batch(ids, emb, pay)
+        ix.build()
+    b = port._backend
+    assert b.store.capacity == 65536
+    if backend == "exact":
+        assert not b._pallas_ok(7) and not b._fused_bmax_ok(7)
+    else:
+        assert not b._pallas_stage1_ok(7) and b._fused_bmax_block() == 0
+    s, i = port.search_batch(q, k=10, eta=0.3, entropy_pref=0.2)
+    assert calls == []
+    s_ref, i_ref = ref.search_batch(q, k=10, eta=0.3, entropy_pref=0.2)
+    assert_same_topk(s, i, s_ref, i_ref)
+
+
 # ---- on the card: each kernel against its plain version ------------------
 
 
@@ -413,22 +553,41 @@ def _card_match(got, want, rtol, atol):
     torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=atol * scale)
 
 
+# (queries, dim, capacity, saturated) for the int4 kernels on the card: the
+# ragged main shapes, the tile edges of the CPU tests, and the saturated
+# case at D 2048 in two launches.
+CARD_S4_CASES = ([(nq, 64, 65536, False) for nq in (1, 5, 32, 40)]
+                 + [(nq, d, S8_TILE_EDGE_CAP, False) for nq, d in S4_TILE_EDGE_SHAPES]
+                 + [(40, 2048, 4096, True)])
+
+
+def _card_s4_inputs(dev, nq, d, cap, saturated):
+    """Packed int4 rows, mult, add, s8 queries and their scales on the card."""
+    if saturated:
+        return tuple(T(a).to(dev) for a in _saturated_s4(nq, cap, d))
+    _, _, p4, mult, add, _, q8, qs = _card_inputs(dev, cap=cap, d=d, nq=nq)
+    return p4, mult, add, q8, qs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32, 40])
-def test_card_bmax_s4(cuda_device, nq):
-    _, _, p4, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
+@pytest.mark.parametrize("nq,d,cap,saturated", CARD_S4_CASES)
+def test_card_bmax_s4(cuda_device, nq, d, cap, saturated):
+    s4 = _card_s4_inputs(cuda_device, nq, d, cap, saturated)
     before = cs.launch_counts["bmax_s4"]
-    got = cs.bmax_s4(p4, mult, add, q8, qs)
+    got = cs.bmax_s4(*s4)
     assert cs.launch_counts["bmax_s4"] == before + (nq + 31) // 32
-    _card_match(got, cs.bmax_s4_plain(p4, mult, add, q8, qs), rtol=0, atol=0)
+    assert bool(torch.isneginf(got[:, -1]).all())
+    _card_match(got, cs.bmax_s4_plain(*s4), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 5, 32, 40])
-def test_card_scores_matrix_s4(cuda_device, nq):
-    _, _, p4, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=nq)
-    got = cs.scores_matrix_s4(p4, mult, add, q8, qs)
-    _card_match(got, cs.scores_matrix_s4_plain(p4, mult, add, q8, qs), rtol=0, atol=0)
+@pytest.mark.parametrize("nq,d,cap,saturated", CARD_S4_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_card_scores_matrix_s4(cuda_device, nq, d, cap, saturated, out_dtype):
+    s4 = _card_s4_inputs(cuda_device, nq, d, cap, saturated)
+    got = cs.scores_matrix_s4(*s4, out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    _card_match(got, cs.scores_matrix_s4_plain(*s4, out_dtype), rtol=0, atol=0)
 
 
 # (queries, dim, capacity) for the float-query kernels on the card: the
@@ -475,7 +634,7 @@ def test_card_scores_matrix(cuda_device, nq, d, cap, out_dtype):
 def test_card_score_independent_of_batch(cuda_device):
     """One code path serves every Q, so a query's stage-1 score is the same
     bit for bit whether it rides alone, in a tile of 8 or in a full launch."""
-    e8, ebf, _, mult, add, q, q8, qs = _card_inputs(cuda_device, nq=32)
+    e8, ebf, p4, mult, add, q, q8, qs = _card_inputs(cuda_device, nq=32)
     for emb in (e8, ebf):
         full = cs.scores_matrix(emb, mult, add, q)
         for nq in (1, 8, 9):
@@ -488,6 +647,11 @@ def test_card_score_independent_of_batch(cuda_device):
         assert torch.equal(cs.scores_matrix_s8(*part), full[:nq])
         assert torch.equal(cs.bmax_s8(*part), cs.bmax_s8(e8, mult, add, q8, qs)[:nq])
         assert torch.equal(cs.bmax_s8_t(*part), cs.bmax_s8_t(e8, mult, add, q8, qs)[:, :nq])
+    full = cs.scores_matrix_s4(p4, mult, add, q8, qs)
+    for nq in (1, 8, 9):
+        part = (p4, mult, add, q8[:nq].contiguous(), qs[:nq].contiguous())
+        assert torch.equal(cs.scores_matrix_s4(*part), full[:nq])
+        assert torch.equal(cs.bmax_s4(*part), cs.bmax_s4(p4, mult, add, q8, qs)[:nq])
 
 
 @pytest.mark.cuda
@@ -590,6 +754,57 @@ def test_card_s8_rejects_misaligned_queries(cuda_device):
     for fn in (cs.bmax_s8, cs.scores_matrix_s8, cs.bmax_s8_t):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(e8, mult, add, q_off, qs)
+
+
+@pytest.mark.cuda
+def test_card_s4_rejects_misaligned_queries(cuda_device):
+    """The int4 kernels read the queries 16 bytes at a time too."""
+    _, _, p4, mult, add, _, q8, qs = _card_inputs(cuda_device, nq=2)
+    q_off = torch.zeros(2 * 64 + 1, dtype=torch.int8, device=cuda_device)[1:].view(2, 64)
+    q_off.copy_(q8)
+    for fn in (cs.bmax_s4, cs.scores_matrix_s4):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(p4, mult, add, q_off, qs)
+
+
+@pytest.mark.cuda
+def test_card_wrappers_refuse_off_grid_dims(cuda_device):
+    """A wrapper given a dim its kernel does not take raises; the index
+    gates keep the index routes from asking."""
+    e8, ebf, p4, mult, add, q, q8, qs = _card_inputs(cuda_device, cap=1024, d=96, nq=2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cs.bmax_s4(p4[:, :24].contiguous(), mult, add, q8[:, :48].contiguous(), qs)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cs.bmax_s8(e8[:, :88].contiguous(), mult, add, q8[:, :88].contiguous(), qs)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cs.scores_matrix(ebf[:, :92].contiguous(), mult, add, q[:, :92].contiguous())
+    assert not cs.kernel_takes("s4", 48, cuda_device)
+    assert cs.kernel_takes("s4", 96, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kw,d,kind", OFF_GRID_INDEXES)
+def test_card_off_grid_dim_takes_the_plain_route(cuda_device, backend, kw, d, kind):
+    """An index on the card at a dim its kernels do not take searches (at
+    Q 5 and, in 32-query groups, 40) without raising, launches no kernel,
+    and returns what the same index with ``use_pallas=False`` returns."""
+    from dewi_tpu_torch import DewiIndex
+
+    ids, emb, pay, q = _off_grid_corpus(d, 40)
+    idx = DewiIndex(dim=d, backend=backend, **kw)
+    plain = DewiIndex(dim=d, backend=backend, use_pallas=False, **kw)
+    for ix in (idx, plain):
+        ix.add_batch(ids, emb, pay)
+        ix.build()
+    assert idx._backend.store.capacity == 65536
+    for nq in (5, 40):
+        cs.reset_launch_counts()
+        s, i = idx.search_batch(q[:nq], k=10, eta=0.3, entropy_pref=0.2)
+        torch.cuda.synchronize()
+        assert sum(cs.launch_counts.values()) == 0
+        s_p, i_p = plain.search_batch(q[:nq], k=10, eta=0.3, entropy_pref=0.2)
+        assert bool(torch.isfinite(s).all()) and s.shape == (nq, 10)
+        assert torch.equal(s, s_p) and torch.equal(i, i_p)
 
 
 @pytest.mark.cuda
