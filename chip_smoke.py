@@ -22,8 +22,9 @@ public entry points:
    at Q=32 ``scores_matrix`` and ``scores_matrix_s8`` with bf16 output
    beside ``torch.matmul`` and ``torch._int_mm`` of the same operands.  The
    two streaming searches at cap 65,536 x 64 and at 2^20 x 256 with
-   1,000,000 live rows, Q 1, 8 and 40 (two launches), k 10, and with fewer
-   live rows than k: scores within 1e-5, ids equal where scores differ;
+   1,000,000 live rows, Q 1, 8, 32 and 40 (two launches), k 10, and with
+   fewer live rows than k: scores within 1e-5, ids equal where scores
+   differ, times beside bounds and library calls at Q 1, 8 and 32;
 3. the README quick start at its own size (10k docs x 768, cosine):
    scorer fit + score, ``set_dewi_scores``, ``build``, ``search``, a
    save/load round trip and an eta sweep, checked against numpy; then
@@ -44,9 +45,10 @@ public entry points:
    script) sending ``POST /search`` (and one ``/search_batch``), every
    answer held against a direct ``search_batch``;
 6. the streaming searches as the bench protocol calls them: on the int8
-   tier's f32 store, codes and scales, ``stream_search`` at Q 1 and 8 and
-   ``int8_stream_search`` at Q 8, each timed beside ``fused_search`` on the
-   same store, recall@10 against exact f32 asserted;
+   tier's f32 store, codes and scales, ``stream_search`` at Q 1 and 8
+   (each timed beside ``fused_search`` on the same store) and
+   ``int8_stream_search`` at Q 1, 8 and 32, recall@10 against exact f32
+   asserted;
 7. the IVF tier: ``IVFIndex(nlist=1024, nprobe=32)`` filled through
    ``attach_device`` from tensors made on the card, cold and warm build,
    both probe implementations timed, recall@10 on the random corpus held
@@ -417,15 +419,17 @@ def stream_cases(x: dict, nq: int, n_valid: int, k: int) -> dict:
 
 def phase_stream_kernels() -> dict:
     """Kernels 9 and 10 against their plain versions; their times at the
-    bench's shape.  ``stream_search``'s Q=1 row and ``int8_stream_search``'s
-    Q=8 row (the only shape the bench gives it) go into the kernels line."""
+    bench's shape, Q 1, 8 and 32.  ``stream_search``'s Q=1 row and
+    ``int8_stream_search``'s Q=8 row (the only shape the bench gives it) go
+    into the kernels line, the Q=32 rows beside them."""
     from dewi_tpu_torch.ops import cuda_search as cs
 
     out = {name: {"max_abs_err": 0.0} for name in STREAM_KERNELS}
     line_q = {"stream_search": 1, "int8_stream_search": 8}
     shapes = ((65536, 64, 5, 65000, K, False), (65536, 64, 3, 4, K, False),
               (1 << 20, DIM, 1, N_LIVE, K, True), (1 << 20, DIM, 8, N_LIVE, K, True),
-              (1 << 20, DIM, 40, N_LIVE, K, False), (1 << 20, DIM, 8, 7, K, False))
+              (1 << 20, DIM, 32, N_LIVE, K, True), (1 << 20, DIM, 40, N_LIVE, K, False),
+              (1 << 20, DIM, 8, 7, K, False))
     x, x_cap = None, 0
     for cap, d, nq, n_valid, k, timed in shapes:
         if cap != x_cap:
@@ -452,6 +456,9 @@ def phase_stream_kernels() -> dict:
                 + json.dumps(row))
             if nq == line_q[name]:
                 rec.update(row)
+            elif nq == 32:  # the full launch of 32 queries beside it
+                rec.update(q32_ms=ms, q32_plain_ms=plain_ms, q32_bound_ms=bound_ms,
+                           q32_bound_by=bound_by, q32_library_ms=lib_ms)
     log("stream kernel max_abs_err vs plain (all shapes; tolerance 1e-5 relative + absolute): "
         + json.dumps({k_: v["max_abs_err"] for k_, v in out.items()}))
     cs.reset_launch_counts()
@@ -802,7 +809,8 @@ def phase_serve(index, queries: torch.Tensor) -> None:
 def phase_stream(index, queries: torch.Tensor, ref_ids: torch.Tensor) -> dict:
     """The bench protocol's streaming section on the int8 tier's arrays: the
     normalized f32 store, the int8 codes and their scales.  ``stream_search``
-    at Q 1 and 8 and ``int8_stream_search`` at Q 8, CUDA-event medians of 50,
+    at Q 1 and 8 and ``int8_stream_search`` at Q 1, 8 and 32, CUDA-event
+    medians of 50,
     each beside ``fused_search`` (block-max selection, as the exact index
     calls it) on the same store; recall@10 of all 1000 queries, in groups of
     32, against exact f32."""
@@ -822,10 +830,11 @@ def phase_stream(index, queries: torch.Tensor, ref_ids: torch.Tensor) -> dict:
         row[f"fused_search_f32_ms_q{nq}"] = time_device_ms(
             lambda: fused_search(emb, sqn, pay, qx, n, ETA, EP, k=K, normalize=True,
                                  blockmax_select=True))
-    q8 = qn[:8].contiguous()
-    row["stream_int8_ms_q8"] = time_device_ms(
-        lambda: cs.int8_stream_search(b._q_emb, b._q_scales, pay, q8, n, ETA, EP, k=K,
-                                      block=8192))
+    for nq in (1, 8, 32):
+        qx = qn[:nq].contiguous()
+        row[f"stream_int8_ms_q{nq}"] = time_device_ms(
+            lambda: cs.int8_stream_search(b._q_emb, b._q_scales, pay, qx, n, ETA, EP, k=K,
+                                          block=8192))
     ids_f32, ids_i8 = [], []
     for i in range(0, qn.shape[0], cs.MAX_QUERIES):
         qx = qn[i:i + cs.MAX_QUERIES].contiguous()
@@ -1070,15 +1079,14 @@ def main() -> int:
 
     line = []
     for name, rec in kernels.items():
-        source = "stream_kernels.cu" if name in STREAM_KERNELS else "search_kernels.cu"
+        source = "stream_kernels.cu" if name == "stream_search" else "search_kernels.cu"
         line.append({"name": name, "route": "cuda",
                      "source": f"dewi_tpu_torch/csrc/{source}",
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                      "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                     # the stage-1 kernels at 32 queries (not timed for the
-                     # streaming searches: null)
+                     # every kernel at 32 queries
                      **{k: rec.get(k) for k in ("q32_ms", "q32_plain_ms", "q32_bound_ms",
                                                 "q32_bound_by", "q32_library_ms")}})
     log(json.dumps({"kernels": line}))

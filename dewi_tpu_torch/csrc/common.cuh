@@ -1,6 +1,7 @@
 // Helpers shared by the search kernels (search_kernels.cu, stream_kernels.cu):
 // the row-tile geometry, cp.async staging, the tensor-core primitives, the
-// row unpacks and the shared-memory opt-in.
+// row unpacks, the streaming searches' top-k lists and the shared-memory
+// opt-in.
 
 #pragma once
 
@@ -128,17 +129,129 @@ __device__ __forceinline__ uint32_t nibble_plane16(uint32_t w, bool low) {
   return low ? ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u : w & 0xF0F0F0F0u;
 }
 
-// Sixteen int8 values (four words) to f32.
-__device__ __forceinline__ void s8x16_to_f32(const uint4 v, float* f) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      f[4 * k + b] = static_cast<float>(static_cast<int8_t>((w[k] >> (8 * b)) & 0xFFu));
+// ---- the streaming searches' top-k lists --------------------------------
+
+constexpr float kStreamNegInf = -3.4e38f;  // NEG_INF of pallas_search.py: finite
+constexpr int kListLen = 32;               // list entries: one per lane; k <= 32
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// (as, ai) stands before (bs, bi) in the result: higher score, then lower row.
+__device__ __forceinline__ bool precedes(float as, int ai, float bs, int bi) {
+  return as > bs || (as == bs && ai < bi);
+}
+
+// Inserts the candidates of the lanes in m (one per lane) into the warp's
+// sorted list (entry j in lane j), one at a time: a ballot finds each one's
+// place among all 32 entries and one shuffle moves the entries after it, so
+// the whole list stays sorted; a candidate that no longer precedes any
+// entry finds position 32 and changes nothing.
+__device__ __forceinline__ void list_insert(float& ls, int& li, float cs, int ci, int lane,
+                                           unsigned m) {
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float s = __shfl_sync(kFullMask, cs, src);
+    const int i = __shfl_sync(kFullMask, ci, src);
+    const int p = __popc(__ballot_sync(kFullMask, precedes(ls, li, s, i)));
+    const float us = __shfl_up_sync(kFullMask, ls, 1);
+    const int ui = __shfl_up_sync(kFullMask, li, 1);
+    if (lane > p) {
+      ls = us;
+      li = ui;
+    } else if (lane == p) {
+      ls = s;
+      li = i;
     }
   }
 }
+
+// Offers one candidate per lane to the warp's sorted list: a candidate
+// enters only if it precedes the list's tail.  An empty slot is (-3.4e38,
+// 0), which no candidate of score -3.4e38 precedes, so masked rows never
+// enter.
+__device__ __forceinline__ void list_offer(float& ls, int& li, float cs, int ci, int lane) {
+  const float ts = __shfl_sync(kFullMask, ls, kListLen - 1);
+  const int ti = __shfl_sync(kFullMask, li, kListLen - 1);
+  list_insert(ls, li, cs, ci, lane, __ballot_sync(kFullMask, precedes(cs, ci, ts, ti)));
+}
+
+// Compare-exchange of one bitonic step between lanes lane and lane ^ d:
+// the lane that should hold the earlier entry (lower lane of a descending
+// block, upper lane of an ascending one) takes its partner's where the
+// partner's precedes.
+__device__ __forceinline__ void bitonic_step(float& s, int& i, int d, bool earlier) {
+  const float ps = __shfl_xor_sync(kFullMask, s, d);
+  const int pi = __shfl_xor_sync(kFullMask, i, d);
+  if (earlier == precedes(ps, pi, s, i)) {
+    s = ps;
+    i = pi;
+  }
+}
+
+// Sorts one (score, row) per lane into a list, entry j in lane j: a
+// bitonic network of 15 steps.
+__device__ __forceinline__ void list_sort(float& s, int& i, int lane) {
+#pragma unroll
+  for (int k = 2; k <= kListLen; k <<= 1) {
+#pragma unroll
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      bitonic_step(s, i, d, ((lane & d) == 0) == ((lane & k) == 0));  // k-blocks alternate
+    }
+  }
+}
+
+// Merges the sorted list (os, oi) into the sorted list (ls, li), keeping
+// the 32 entries of the two that come first, in order: the better of entry
+// j of one and entry 31 - j of the other is among them and forms a bitonic
+// sequence, which five steps sort.
+__device__ __forceinline__ void list_merge(float& ls, int& li, float os, int oi, int lane) {
+  const float rs = __shfl_sync(kFullMask, os, kListLen - 1 - lane);
+  const int ri = __shfl_sync(kFullMask, oi, kListLen - 1 - lane);
+  if (precedes(rs, ri, ls, li)) {
+    ls = rs;
+    li = ri;
+  }
+#pragma unroll
+  for (int d = kListLen / 2; d > 0; d >>= 1) bitonic_step(ls, li, d, (lane & d) == 0);
+}
+
+// list_offer where many candidates may enter and only the first k entries
+// are wanted: a candidate counts only if it precedes entry `last` = k - 1,
+// so the first k entries are exactly the k best offered and those after
+// them are offered pairs in order, which a merge may take in without harm.
+// Up to kInsertMax such candidates are inserted one by one; more are
+// sorted and merged in (about as costly as five insertions, whatever their
+// number), which keeps the 32 that come first of the list and all
+// candidates.  Measured on an H100 at 2^20 x 256, Q=8: always inserting
+// was 9% slower, always sorting 29%.
+constexpr int kInsertMax = 5;
+__device__ __forceinline__ void list_offer_many(float& ls, int& li, float cs, int ci,
+                                                int lane, int last) {
+  const float ts = __shfl_sync(kFullMask, ls, last);
+  const int ti = __shfl_sync(kFullMask, li, last);
+  const unsigned m = __ballot_sync(kFullMask, precedes(cs, ci, ts, ti));
+  if (__popc(m) > kInsertMax) {
+    list_sort(cs, ci, lane);
+    list_merge(ls, li, cs, ci, lane);
+  } else {
+    list_insert(ls, li, cs, ci, lane, m);
+  }
+}
+
+// A float's order as an int, for atomicMax: order_key(a) < order_key(b)
+// exactly where a < b (no NaN); order_value inverts it.
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+__device__ __forceinline__ float order_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+}
+
+// Merges [chunks, nq, 32] sorted partial lists into out [nq, k] on
+// `stream` (stream_kernels.cu); returns the launch's cudaError_t.
+int stream_merge(const float* part_s, const int* part_i, int chunks, int nq, int k,
+                 float* out_s, int* out_i, cudaStream_t stream);
 
 // Opts fn in to smem bytes of dynamic shared memory on the calling thread's
 // current device.  The opt-in holds per device and launches come from any

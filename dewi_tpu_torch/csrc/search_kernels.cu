@@ -1,8 +1,9 @@
-// Stage-1 search kernels for Hopper (sm_90a).
+// Stage-1 search kernels and the int8 streaming search for Hopper (sm_90a).
 //
 // Hand-written CUDA ports of the eight stage-1 Pallas kernels of
-// dewi_tpu/ops/pallas_search.py (its two streaming searches are in
-// stream_kernels.cu):
+// dewi_tpu/ops/pallas_search.py and of its streaming search over int8 rows
+// (the one over f32 rows, and the merge both streaming searches end with,
+// are in stream_kernels.cu):
 //
 //   dewi_bmax_s4          <- pallas_bmax_s4          (:661, _bmax_kernel_s4 :651, _s4_acc :428)
 //   dewi_scores_matrix_s4 <- pallas_scores_matrix_s4 (:470, _scores_kernel_s4 :458)
@@ -12,6 +13,8 @@
 //   dewi_scores_matrix_s8 <- pallas_scores_matrix_s8 (:378, _scores_kernel_s8 :362)
 //   dewi_bmax_t           <- pallas_bmax_t           (:740, _bmax_kernel_t :713)
 //   dewi_bmax_s8_t        <- pallas_bmax_s8_t        (:793, _bmax_kernel_s8_t :725)
+//   dewi_int8_stream_search <- pallas_int8_search    (:239, _int8_search_kernel :181,
+//                                                      _topk_via_max :46)
 //
 // Each computes, for every query q and corpus row r,
 //
@@ -41,8 +44,9 @@
 // Bound on this card: all of them stream the corpus once and do little
 // work per byte (2*Q operations per element at Q <= 32), so the least time
 // is that of the device-memory bytes: the corpus, mult and add read once,
-// the output written once.  On the CUDA cores that holds only for a few
-// queries (32 multiply-adds per element are 0.26 ms of f32 work at 2^20 x
+// the output written once (the int8 streaming search: the live rows, their
+// scales and payloads read once, Q * k pairs written).  On the CUDA cores
+// that holds only for a few queries (32 multiply-adds per element are 0.26 ms of f32 work at 2^20 x
 // 256, three times the memory time, and 2.1 G __dp4a at Q=32 were 0.15-0.2
 // ms of issue time for the int4 kinds); on the tensor cores the same
 // product is a fifth (bf16) or a tenth (s8) of the memory time, so every
@@ -103,6 +107,39 @@
 //     fragments, where in the query each fragment's values sit, the query
 //     and accumulator types, the mma): the ring, the walk and the reduction
 //     do not.
+//   * The int8 streaming search is the int8-row kind in a third mode
+//     (kTopK), over the tiles that hold live rows only (ceil(n_valid /
+//     128) of them; the grid is sized by those), one row group per unit of
+//     work.  It computes
+//       sim[q, r] = acc[q, r] * scale[r]
+//       adj[q, r] = (1 - eta) * sim + eta * pay[r, 0]
+//                   + (entropy_pref * 0.5) * (pay[r, 1] + pay[r, 3])
+//     term by term, one rounding per operation as its plain version, with
+//     rows r >= n_valid at -3.4e38 (finite), and keeps the k <= 32 best
+//     (adj, r) per query: descending score, the lower row first among equal
+//     ones, empty slots (-3.4e38, 0).  The scale and the payload's first 16
+//     bytes are loaded a row group ahead.  Each warp keeps one sorted list
+//     of 32 (score, row) per query in shared memory (entry j at lane j;
+//     common.cuh), and the CTA a threshold per query: the largest entry
+//     k - 1 of its warps' lists.  A warp's rows come in increasing order,
+//     so one compare of each score with its list's entry k - 1 and the
+//     threshold, and one __any_sync per row group, decide whether the
+//     group offers anything; only then does the warp transpose the group's
+//     scores through a tile in the ring stage it has just read and offer
+//     each such query its 32 rows (a few by insertion, more by a bitonic
+//     sort and merge), in one loop over the passing queries, so the code
+//     is not repeated per query (32 unrolled copies, with the lists in
+//     registers at 230 a lane, were much slower at Q=32).  A warp's
+//     own list fills from ~1,000 rows, so at Q=32 about half its groups
+//     still offered something; so where the launch has more than 8
+//     queries and many live rows, a first pass of the same kernel over the
+//     first kSeedRows rows is merged first, and each query's k-th score
+//     from it starts the thresholds of the full pass: k rows score at
+//     least that, with this kernel's own arithmetic, so pruning below it
+//     is exact.  At the end each CTA merges its warps' lists into one per
+//     query, [grid, Q, 32]; stream_merge merges those.  The order (score,
+//     then row) is total, so the result does not depend on how the rows
+//     were split.
 // In f32 the tensor cores add the 16 exact products of a step and the
 // running sum in their own order and precision, so a float-query result may
 // differ from an f32 sum in sequence by a few ulps of the largest partial
@@ -121,6 +158,10 @@ namespace {
 using namespace dewi;
 
 enum Kind { kInt8 = 0, kBf16 = 1, kS4 = 2, kS8 = 3 };
+// What stage1_mma_kernel does with a row group's scores: store [Q, cap],
+// keep 128-row block maxima, or keep each query's best k (the streaming
+// search over int8 rows).
+enum Mode { kStore = 0, kBlockMax = 1, kTopK = 2 };
 
 struct Args {
   const void* emb;
@@ -289,38 +330,95 @@ struct RowOperand<kS4> : S8Mma {
 };
 
 // Dynamic shared memory of one CTA: the queries in fragment order (one
-// 16-byte vector per lane, query tile, chunk and query vector) and a ring
-// per warp.
+// 16-byte vector per lane, query tile, chunk and query vector), then per
+// warp a ring (and in the top-k mode its lists), then in the top-k mode one
+// threshold per query column.
 __host__ __device__ constexpr size_t mma_query_bytes(int kind, int nt, int row_bytes) {
   return static_cast<size_t>(nt) * ((row_bytes + kChunkBytes - 1) / kChunkBytes) *
          query_vecs(kind) * 32 * 16;
 }
 
-// Row groups in a warp's unit of work.  Walking one row group at a time
-// made the [Q, cap] store 2% faster than whole sub-blocks with f32 out and
-// 1% slower with bf16 out (an H100 at Q=32).
-__host__ __device__ constexpr int unit_groups(int kind, bool bmax, int out_bf16) {
-  return bmax || out_bf16 ? kSub / group_rows(kind) : 1;
+// The top-k mode's selection tile: a row group's scores by query, one row
+// of kSelStride floats per query (32 rows used), in the ring stage the
+// group has just been read from.  A stride of 36 puts the 32 scores a warp
+// writes at once (8 rows g by 4 query pairs t) on 32 distinct banks: 36 t
+// + g = 4 t + g mod 32.
+constexpr int kSelStride = 36;
+static_assert(4 * kQueryTile * kSelStride * 4 <= kStageBytes, "the tile fits in a stage");
+// The top-k mode's lists, per warp: [QT][kListStride] scores, then as
+// many rows; a stride of 33 spreads the lanes' reads of entry k - 1 of
+// their query columns (8 nt + 2t + e) over the banks.
+constexpr int kListStride = kListLen + 1;
+__host__ __device__ constexpr int list_bytes(int nt) {
+  return 2 * nt * kQueryTile * kListStride * 4;
+}
+__host__ __device__ constexpr int warp_bytes(int mode, int nt) {
+  return kRingBytes + (mode == kTopK ? list_bytes(nt) : 0);
+}
+// The top-k mode's per-CTA bytes: one threshold per query column.
+__host__ __device__ constexpr int cta_bytes(int mode, int nt) {
+  return mode == kTopK ? nt * kQueryTile * static_cast<int>(sizeof(int)) : 0;
 }
 
-// The warps of a CTA at this query size: as many rings as fit beside the
-// queries, at most kMmaWarps; below kMmaMinWarps the queries do not fit.
-int mma_warps(int kind, int nt, int row_bytes) {
-  const size_t q = mma_query_bytes(kind, nt, row_bytes);
-  if (q + kMmaMinWarps * kRingBytes > kMaxSmem) return 0;
-  const int fit = static_cast<int>((kMaxSmem - q) / kRingBytes);
+// Row groups in a warp's unit of work.  Walking one row group at a time
+// made the [Q, cap] store 2% faster than whole sub-blocks with f32 out and
+// 1% slower with bf16 out (an H100 at Q=32).  The top-k mode walks one
+// group at a time too: whole sub-blocks were 4-5% slower there at Q 1-32
+// (an H100, with the lists then in registers).
+__host__ __device__ constexpr int unit_groups(int kind, int mode, int out_bf16) {
+  return mode == kBlockMax || out_bf16 ? kSub / group_rows(kind) : 1;
+}
+
+// The warps of a CTA at this query size: as many rings (and top-k lists)
+// as fit beside the queries, at most kMmaWarps; below kMmaMinWarps the
+// queries do not fit.
+int mma_warps(int kind, int nt, int row_bytes, int mode) {
+  const size_t q = mma_query_bytes(kind, nt, row_bytes) + cta_bytes(mode, nt);
+  const size_t per_warp = warp_bytes(mode, nt);
+  if (q + kMmaMinWarps * per_warp > kMaxSmem) return 0;
+  const int fit = static_cast<int>((kMaxSmem - q) / per_warp);
   return fit < kMmaWarps ? fit : kMmaWarps;
 }
 
-template <int KIND, bool BMAX, int NT>
+// The top-k mode's own arguments (zero in the other modes): the re-rank's
+// payloads and weights, the live rows, k, the CTA's [grid, nq, 32] partial
+// lists, and the seed: null, or the [nq, k] scores of a pass over a prefix
+// of the rows, whose entry k - 1 starts each query's threshold.
+struct TopK {
+  const float* pay;  // [cap, 8]
+  int n_valid;
+  float one_minus_eta;
+  float eta;
+  float half_ep;
+  int k;
+  float* part_s;
+  int* part_i;
+  const float* seed;
+};
+
+// The seeding pass of the int8 streaming search: its first kSeedRows rows
+// (1024 row groups: one per warp of a full grid) are searched first where
+// the live rows are more than kSeedMinRows and the launch has more than one
+// tile of queries.  Measured on an H100 at 2^20 x 256 with 1M live rows:
+// Q=32 0.279 -> 0.172 ms, Q=16 0.176 -> 0.142, Q=8 0.133 -> 0.130, but Q=1
+// 0.113 -> 0.125 (the pass and its merge cost about 12 us), and seeds of
+// 16,384 or 65,536 rows were no better.
+constexpr long long kSeedRows = 32768;
+constexpr long long kSeedMinRows = 4 * kSeedRows;
+
+template <int KIND, int MODE, int NT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
                   const float* __restrict__ qf,      // [nq, d] f32 (float kinds)
                   const int8_t* __restrict__ q8,     // [nq, d] s8 (kS8, kS4)
                   const float* __restrict__ qscale,  // [nq] (kS8, kS4)
-                  const float* __restrict__ mult, const float* __restrict__ add,
+                  const float* __restrict__ mult,    // [cap]; kTopK: the row scales
+                  const float* __restrict__ add,     // [cap]; kTopK: unused
                   void* __restrict__ out, int out_bf16, int nq, int d, long long cap,
-                  long long out_qstride, long long out_bstride) {
+                  long long out_qstride, long long out_bstride, const TopK tk) {
+  constexpr bool BMAX = MODE == kBlockMax;
+  constexpr bool TOPK = MODE == kTopK;
+  static_assert(!TOPK || KIND == kInt8, "the top-k mode is the int8 streaming search");
   using Op = RowOperand<KIND>;
   using Acc = typename Op::Acc;
   constexpr int QV = Op::kQueryVecs;
@@ -373,17 +471,34 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     }
     qfrag[i] = w;
   }
+  // kTopK: the CTA's threshold of each query column (as order_key): entry
+  // k - 1 of the seed or of some warp's list.  k rows score at least that
+  // (the seed's scores are this kernel's own, over the same rows), so no
+  // score below it is among the k best.
+  int* thr = reinterpret_cast<int*>(smem + mma_query_bytes(KIND, NT, row_bytes) +
+                                    (blockDim.x >> 5) * warp_bytes(MODE, NT));
+  if constexpr (TOPK) {
+    for (int i = tid; i < NT * kQueryTile; i += blockDim.x) {
+      const bool seeded = tk.seed != nullptr && i < nq;
+      thr[i] = order_key(seeded ? tk.seed[i * tk.k + tk.k - 1] : -INFINITY);
+    }
+  }
   __syncthreads();
 
   // A warp's unit of work (unit_groups(), in row groups): a whole
   // sub-block where it keeps the block max, one row group where it stores
   // [Q, cap] f32, so that there the warps of the grid read and write one
   // contiguous range at a time.
-  const int ugroups = unit_groups(KIND, BMAX, out_bf16);
+  const int ugroups = unit_groups(KIND, MODE, out_bf16);
   const int urows = ugroups * kGroupRows;
-  uint8_t* ring = smem + mma_query_bytes(KIND, NT, row_bytes) + warp * kRingBytes;
-  const long long nunits = cap / urows;
+  const size_t qbytes = mma_query_bytes(KIND, NT, row_bytes);
   const int cta_warps = blockDim.x >> 5;
+  uint8_t* ring = smem + qbytes + warp * kRingBytes;
+  constexpr int kLists = NT * kQueryTile;  // kTopK: one list per query column
+  float* wls = reinterpret_cast<float*>(smem + qbytes + cta_warps * kRingBytes +
+                                        warp * list_bytes(NT));
+  int* wli = reinterpret_cast<int*>(wls + kLists * kListStride);
+  const long long nunits = cap / urows;  // kTopK: cap is the rows to walk
   const int nwarps = gridDim.x * cta_warps;
   const int wid = blockIdx.x * cta_warps + warp;
   const int nslab = (row_bytes + kSlabRowBytes - 1) / kSlabRowBytes;
@@ -446,14 +561,36 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = Acc(0);
     }
   }
-  float m[2 * kMTiles], a[2 * kMTiles];
+  // kTopK: m is the row's scale, a and en its two re-rank terms, eta *
+  // pay[r, 0] and (entropy_pref / 2) * (pay[r, 1] + pay[r, 3]) (the first
+  // 16 bytes of the payload row), each rounded once as the plain version
+  // computes them.
+  float m[2 * kMTiles], a[2 * kMTiles], en[2 * kMTiles];
   auto load_mult_add = [&](long long row0) {
 #pragma unroll
     for (int i = 0; i < 2 * kMTiles; ++i) {
-      m[i] = mult[row0 + 8 * i + g];
-      a[i] = add[row0 + 8 * i + g];
+      const long long r = row0 + 8 * i + g;
+      m[i] = mult[r];
+      if constexpr (TOPK) {
+        const float4 p = *reinterpret_cast<const float4*>(tk.pay + r * 8);
+        a[i] = __fmul_rn(tk.eta, p.x);
+        en[i] = __fmul_rn(tk.half_ep, __fadd_rn(p.y, p.w));
+      } else {
+        a[i] = add[r];
+      }
     }
   };
+  // kTopK: the warp's list of each query column in shared memory (entry
+  // j at lane j), of which the first k are the k best rows the warp has
+  // offered; a column past nq starts at +inf, so that nothing is offered
+  // to it.
+  const int last = tk.k - 1;
+  if constexpr (TOPK) {
+    for (int q = 0; q < kLists; ++q) {
+      wls[q * kListStride + lane] = q < nq ? kStreamNegInf : INFINITY;
+      wli[q * kListStride + lane] = 0;
+    }
+  }
   long long c_u = wid;
   int c_g = 0, c_s = 0, stage = 0;
   if (total > 0) load_mult_add(c_u * urows);
@@ -464,7 +601,7 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     if (it + kStages - 1 < total) fetch(stage == 0 ? kStages - 1 : stage - 1);
     cp_async_commit();
 
-    const uint8_t* st = ring + stage * kStageBytes;
+    uint8_t* st = ring + stage * kStageBytes;
     const int left = row_bytes - c_s * kSlabRowBytes;  // bytes of the row from this slab on
     const int nc = left >= kSlabRowBytes ? kSlabChunks : (left + kChunkBytes - 1) / kChunkBytes;
     for (int c = 0; c < nc; ++c) {
@@ -508,38 +645,131 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     // The row group is complete: one rounding per score (for s8 queries
     // after q_scale * mult, as the TPU kernel associates it), then the
     // maxima or the [Q, cap] store (8 consecutive rows of a query per quad
-    // row).
+    // row); in the top-k mode the re-ranked scores go to the lists.
     c_s = 0;
     const long long row0 = c_u * urows + c_g * kGroupRows;
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
+    if constexpr (TOPK) {
+      // Score row 8 i + g against query 8 nt + 2t + e: sim = acc * scale,
+      // then the re-rank term by term, one rounding per operation; rows
+      // past n_valid get -3.4e38.  A warp walks its rows in increasing
+      // order, so a score equal to a list's entry k - 1 comes from a later
+      // row and does not precede it: one compare per score decides whether
+      // the group offers anything, and one vote skips the selection when
+      // nothing does.
+      unsigned pass = 0;  // bit 2 nt + e: a score of that column beats its tail
+      float tail[NT][2];  // entry k - 1 of the lists of this lane's query columns
+      float cut[NT][2];   // the CTA's thresholds of the same columns
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mr = m[2 * mt + (e >> 1)], ar = a[2 * mt + (e >> 1)];
-          if constexpr (Op::kS8Queries) {
-            v[e] = __fmaf_rn(__int2float_rn(acc[mt][nt][e] >> Op::kAccShift),
-                             __fmul_rn(qsc[nt][e & 1], mr), ar);
-          } else {
-            v[e] = __fmaf_rn(acc[mt][nt][e], mr, ar);
-          }
-          acc[mt][nt][e] = Acc(0);
+        for (int e = 0; e < 2; ++e) {
+          const int q = nt * kQueryTile + 2 * t + e;
+          tail[nt][e] = wls[q * kListStride + last];
+          cut[nt][e] = order_value(thr[q]);
         }
-        if constexpr (BMAX) {
-          best[nt][0] = fmaxf(best[nt][0], fmaxf(v[0], v[2]));
-          best[nt][1] = fmaxf(best[nt][1], fmaxf(v[1], v[3]));
-        } else {
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int q = nt * kQueryTile + 2 * t + (e & 1);
-            if (q < nq) {
-              const long long o = q * cap + row0 + 16 * mt + 8 * (e >> 1) + g;
-              if (out_bf16) {
-                reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v[e]);
-              } else {
-                reinterpret_cast<float*>(out)[o] = v[e];
+            const int i = 2 * mt + (e >> 1);
+            const float sim = __fmul_rn(acc[mt][nt][e], m[i]);
+            const float v = __fadd_rn(__fadd_rn(__fmul_rn(tk.one_minus_eta, sim), a[i]), en[i]);
+            const float sc = row0 + 8 * i + g < tk.n_valid ? v : kStreamNegInf;
+            acc[mt][nt][e] = sc;
+            if (sc > tail[nt][e & 1] && sc >= cut[nt][e & 1]) pass |= 1u << (2 * nt + (e & 1));
+          }
+        }
+      }
+      if (__any_sync(kFullMask, pass != 0)) {
+        // Transpose the group's scores through the selection tile (in the
+        // ring stage just read), then offer each query column with a
+        // passing score its 32 rows, lane j row0 + j: one code path for
+        // every column, walked by a mask that is the same in every lane.
+        float* sel = reinterpret_cast<float*>(st);
+        __syncwarp();  // every lane has read its rows from the stage
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sel[(nt * kQueryTile + 2 * t + (e & 1)) * kSelStride + 16 * mt + 8 * (e >> 1) + g] =
+                  acc[mt][nt][e];
+            }
+          }
+        }
+        unsigned qmask = 0;  // bit q: query column q has a passing score
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const unsigned lanes = __ballot_sync(kFullMask, (pass >> (2 * nt + e)) & 1u);
+#pragma unroll
+            for (int tt = 0; tt < 4; ++tt) {
+              if (lanes & (0x11111111u << tt)) qmask |= 1u << (nt * kQueryTile + 2 * tt + e);
+            }
+          }
+        }
+        __syncwarp();
+        while (qmask) {
+          const int q = __ffs(qmask) - 1;
+          qmask &= qmask - 1;
+          // Scores below the CTA's threshold, and masked rows, are offered
+          // as empty slots, which never enter.
+          const float sc = sel[q * kSelStride + lane];
+          const bool keep = sc >= order_value(thr[q]) && sc > kStreamNegInf;
+          float ls = wls[q * kListStride + lane];
+          int li = wli[q * kListStride + lane];
+          list_offer_many(ls, li, keep ? sc : kStreamNegInf,
+                          keep ? static_cast<int>(row0) + lane : 0, lane, last);
+          wls[q * kListStride + lane] = ls;
+          wli[q * kListStride + lane] = li;
+          const float ts = __shfl_sync(kFullMask, ls, last);
+          if (lane == 0) atomicMax(thr + q, order_key(ts));
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = Acc(0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float mr = m[2 * mt + (e >> 1)], ar = a[2 * mt + (e >> 1)];
+            if constexpr (Op::kS8Queries) {
+              v[e] = __fmaf_rn(__int2float_rn(acc[mt][nt][e] >> Op::kAccShift),
+                               __fmul_rn(qsc[nt][e & 1], mr), ar);
+            } else {
+              v[e] = __fmaf_rn(acc[mt][nt][e], mr, ar);
+            }
+            acc[mt][nt][e] = Acc(0);
+          }
+          if constexpr (BMAX) {
+            best[nt][0] = fmaxf(best[nt][0], fmaxf(v[0], v[2]));
+            best[nt][1] = fmaxf(best[nt][1], fmaxf(v[1], v[3]));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = nt * kQueryTile + 2 * t + (e & 1);
+              if (q < nq) {
+                const long long o = q * cap + row0 + 16 * mt + 8 * (e >> 1) + g;
+                if (out_bf16) {
+                  reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v[e]);
+                } else {
+                  reinterpret_cast<float*>(out)[o] = v[e];
+                }
               }
             }
           }
@@ -569,47 +799,109 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     }
     if (it + 1 < total) load_mult_add(c_u * urows + c_g * kGroupRows);
   }
+
+  if constexpr (TOPK) {
+    // Merge the CTA's lists: warp w merges queries w, w + cta_warps, ...
+    // over every warp's list (list_merge) into the CTA's partial result
+    // part[blockIdx.x, q, 32].
+    __syncthreads();
+    for (int q = warp; q < nq; q += cta_warps) {
+      float s = kStreamNegInf;
+      int i = 0;
+      for (int w = 0; w < cta_warps; ++w) {
+        const float* ws = reinterpret_cast<const float*>(smem + qbytes + cta_warps * kRingBytes +
+                                                         w * list_bytes(NT));
+        const int* wi = reinterpret_cast<const int*>(ws + kLists * kListStride);
+        list_merge(s, i, ws[q * kListStride + lane], wi[q * kListStride + lane], lane);
+      }
+      const long long o = (static_cast<long long>(blockIdx.x) * nq + q) * kListLen + lane;
+      tk.part_s[o] = s;
+      tk.part_i[o] = i;
+    }
+  }
 }
 
-template <int KIND, bool BMAX, int NT>
-int launch_mma_nt(const Args& a, cudaStream_t stream) {
+// The kernel of this kind, mode and query tiles at row_bytes, readied for
+// a launch on the current device: its warps, its dynamic shared memory
+// (opted in: the rings alone pass 48 KB) and how many of its CTAs the card
+// holds at once.
+struct Ready {
+  int warps;
+  size_t smem;
+  long long held;
+};
+
+template <int KIND, int MODE, int NT>
+cudaError_t ready(int row_bytes, Ready* r) {
   static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
   static std::mutex smem_mu;
-  const int warps = mma_warps(KIND, NT, a.row_bytes);
-  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = mma_query_bytes(KIND, NT, a.row_bytes) + warps * kRingBytes;
-  auto fn = stage1_mma_kernel<KIND, BMAX, NT>;
-  cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);  // the rings alone pass 48 KB
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // A persistent grid: as many CTAs as the card holds at once, or fewer
-  // where the corpus has fewer units of work than that many warps.
+  r->warps = mma_warps(KIND, NT, row_bytes, MODE);
+  if (r->warps == 0) return cudaErrorInvalidValue;
+  r->smem = mma_query_bytes(KIND, NT, row_bytes) + r->warps * warp_bytes(MODE, NT) +
+            cta_bytes(MODE, NT);
+  auto fn = stage1_mma_kernel<KIND, MODE, NT>;
+  cudaError_t e = opt_in_smem(fn, r->smem, smem_set_on, smem_mu);
+  if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, r->warps * 32, r->smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  r->held = static_cast<long long>(sms) * per_sm;
+  return cudaSuccess;
+}
+
+// A persistent grid: as many CTAs as the card holds at once, or fewer
+// where the rows have fewer units of work than that many warps, and at
+// most max_ctas (0: no limit).  The grid launched goes to *ctas.
+template <int KIND, int MODE, int NT>
+int launch_mma_nt(const Args& a, const TopK& tk, int max_ctas, int* ctas,
+                  cudaStream_t stream) {
+  Ready r;
+  cudaError_t e = ready<KIND, MODE, NT>(a.row_bytes, &r);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, warps * 32, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long long units = a.cap / (unit_groups(KIND, BMAX, a.out_bf16) * group_rows(KIND));
-  const long long want = (units + warps - 1) / warps;
-  const long long held = static_cast<long long>(sms) * per_sm;
-  const dim3 grid(static_cast<unsigned>(want < held ? want : held));
-  fn<<<grid, warps * 32, smem, stream>>>(
+  const long long units = a.cap / (unit_groups(KIND, MODE, a.out_bf16) * group_rows(KIND));
+  long long grid = (units + r.warps - 1) / r.warps;
+  if (grid > r.held) grid = r.held;
+  if (max_ctas > 0 && grid > max_ctas) grid = max_ctas;
+  if (grid < 1) grid = 1;  // the top-k mode writes its lists, empty, with no live row
+  *ctas = static_cast<int>(grid);
+  stage1_mma_kernel<KIND, MODE, NT><<<dim3(static_cast<unsigned>(grid)), r.warps * 32, r.smem,
+                                      stream>>>(
       static_cast<const uint8_t*>(a.emb), a.row_bytes, a.qf, a.q8, a.qscale, a.mult, a.add,
-      a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride);
+      a.out, a.out_bf16, a.nq, a.d, a.cap, a.out_qstride, a.out_bstride, tk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KIND, bool BMAX>
-int launch_mma(const Args& a, void* stream) {
+template <int KIND, int MODE>
+int launch_mma(const Args& a, void* stream, const TopK& tk = TopK{}, int max_ctas = 0,
+               int* ctas = nullptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.cap <= 0 || a.cap % kSub != 0 || a.row_bytes % 16 != 0 || a.nq < 1) {
+  int launched = 0;
+  if (ctas == nullptr) ctas = &launched;
+  // The top-k mode walks the live rows' tiles, which may be none.
+  if (a.cap < (MODE == kTopK ? 0 : 1) || a.cap % kSub != 0 || a.row_bytes % 16 != 0 ||
+      a.nq < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.nq <= 1 * kQueryTile) return launch_mma_nt<KIND, BMAX, 1>(a, st);
-  if (a.nq <= 2 * kQueryTile) return launch_mma_nt<KIND, BMAX, 2>(a, st);
-  if (a.nq <= 4 * kQueryTile) return launch_mma_nt<KIND, BMAX, 4>(a, st);
+  if (a.nq <= 1 * kQueryTile) return launch_mma_nt<KIND, MODE, 1>(a, tk, max_ctas, ctas, st);
+  if (a.nq <= 2 * kQueryTile) return launch_mma_nt<KIND, MODE, 2>(a, tk, max_ctas, ctas, st);
+  if (a.nq <= 4 * kQueryTile) return launch_mma_nt<KIND, MODE, 4>(a, tk, max_ctas, ctas, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many CTAs of the kind and mode the card holds at once for nq queries
+// at row_bytes; minus the CUDA error where there is one.
+template <int KIND, int MODE>
+int held_ctas(int nq, int row_bytes) {
+  Ready r{};
+  cudaError_t e = cudaErrorInvalidValue;
+  if (nq >= 1 && nq <= 1 * kQueryTile) e = ready<KIND, MODE, 1>(row_bytes, &r);
+  else if (nq >= 1 && nq <= 2 * kQueryTile) e = ready<KIND, MODE, 2>(row_bytes, &r);
+  else if (nq >= 1 && nq <= 4 * kQueryTile) e = ready<KIND, MODE, 4>(row_bytes, &r);
+  return e == cudaSuccess ? static_cast<int>(r.held) : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -623,7 +915,8 @@ int dewi_scores_matrix(const void* emb, int emb_bf16, const float* q,
                        int out_bf16, int nq, int d, long long cap, void* stream) {
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, out_bf16,
          nq, d, cap, 0, 0};
-  return emb_bf16 ? launch_mma<kBf16, false>(a, stream) : launch_mma<kInt8, false>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, kStore>(a, stream)
+                  : launch_mma<kInt8, kStore>(a, stream);
 }
 
 // pallas_bmax: as dewi_scores_matrix, out [nq, cap / 128] f32 sub-block maxima.
@@ -632,7 +925,8 @@ int dewi_bmax(const void* emb, int emb_bf16, const float* q, const float* mult,
               void* stream) {
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
          cap, cap / kSub, 1};
-  return emb_bf16 ? launch_mma<kBf16, true>(a, stream) : launch_mma<kInt8, true>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, kBlockMax>(a, stream)
+                  : launch_mma<kInt8, kBlockMax>(a, stream);
 }
 
 // pallas_bmax_t: as dewi_bmax, corpus-major: the maxima of these nq queries
@@ -643,7 +937,8 @@ int dewi_bmax_t(const void* emb, int emb_bf16, const float* q, const float* mult
   if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
   Args a{emb, d * (emb_bf16 ? 2 : 1), q, nullptr, nullptr, mult, add, out, 0, nq, d,
          cap, 1, ldo};
-  return emb_bf16 ? launch_mma<kBf16, true>(a, stream) : launch_mma<kInt8, true>(a, stream);
+  return emb_bf16 ? launch_mma<kBf16, kBlockMax>(a, stream)
+                  : launch_mma<kInt8, kBlockMax>(a, stream);
 }
 
 // pallas_scores_matrix_s8: emb [cap, d] int8, q8 [nq, d] int8, qscale [nq]
@@ -652,7 +947,7 @@ int dewi_scores_matrix_s8(const void* emb, const int8_t* q8, const float* qscale
                           const float* mult, const float* add, void* out,
                           int out_bf16, int nq, int d, long long cap, void* stream) {
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
-  return launch_mma<kS8, false>(a, stream);
+  return launch_mma<kS8, kStore>(a, stream);
 }
 
 // pallas_bmax_s8: as dewi_scores_matrix_s8, out [nq, cap / 128] f32.
@@ -660,7 +955,7 @@ int dewi_bmax_s8(const void* emb, const int8_t* q8, const float* qscale,
                  const float* mult, const float* add, float* out, int nq, int d,
                  long long cap, void* stream) {
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
-  return launch_mma<kS8, true>(a, stream);
+  return launch_mma<kS8, kBlockMax>(a, stream);
 }
 
 // pallas_bmax_s8_t: as dewi_bmax_s8, corpus-major into out [cap / 128, ldo].
@@ -669,7 +964,7 @@ int dewi_bmax_s8_t(const void* emb, const int8_t* q8, const float* qscale,
                    int nq, int d, long long cap, void* stream) {
   if (ldo < nq) return static_cast<int>(cudaErrorInvalidValue);
   Args a{emb, d, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, 1, ldo};
-  return launch_mma<kS8, true>(a, stream);
+  return launch_mma<kS8, kBlockMax>(a, stream);
 }
 
 // pallas_scores_matrix_s4: packed [cap, d / 2] int8, q8 [nq, d] int8,
@@ -680,7 +975,7 @@ int dewi_scores_matrix_s4(const void* packed, const int8_t* q8,
                           int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, out_bf16, nq, d, cap, 0, 0};
-  return launch_mma<kS4, false>(a, stream);
+  return launch_mma<kS4, kStore>(a, stream);
 }
 
 // pallas_bmax_s4: as dewi_scores_matrix_s4, out [nq, cap / 128] f32.
@@ -689,7 +984,7 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
                  int d, long long cap, void* stream) {
   if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{packed, d / 2, nullptr, q8, qscale, mult, add, out, 0, nq, d, cap, cap / kSub, 1};
-  return launch_mma<kS4, true>(a, stream);
+  return launch_mma<kS4, kBlockMax>(a, stream);
 }
 
 // The most queries one launch takes at dim d, in whole tiles of 8 (8, 16
@@ -699,10 +994,62 @@ int dewi_bmax_s4(const void* packed, const int8_t* q8, const float* qscale,
 int dewi_queries_per_launch(int kind, int d) {
   const int row_bytes = kind == kBf16 ? 2 * d : kind == kS4 ? d / 2 : d;
   for (int nt = 4; nt >= 1; nt >>= 1) {
-    if (mma_warps(kind, nt, row_bytes) > 0) return nt * kQueryTile;
+    if (mma_warps(kind, nt, row_bytes, kStore) > 0) return nt * kQueryTile;
   }
   return 0;
 }
+
+// pallas_int8_search: emb [cap, d] int8, scales [cap] f32, pay [cap, 8] f32,
+// q [nq, d] f32 (nq <= 32) -> out_s [nq, k] f32, out_i [nq, k] i32, k <= 32.
+// The tensor-core kernel in its top-k mode walks the tiles that hold live
+// rows on a persistent grid of at most max_ctas CTAs, each of which writes
+// its lists to part_s/part_i ([max_ctas, nq, 32] scratch); stream_merge then
+// merges them.
+int dewi_int8_stream_search(const int8_t* emb, const float* scales, const float* pay,
+                            const float* q, int nq, int d, long long cap, int n_valid,
+                            float one_minus_eta, float eta, float half_ep, int k,
+                            int max_ctas, float* part_s, int* part_i, float* out_s,
+                            int* out_i, void* stream) {
+  if (cap <= 0 || cap % kSub != 0 || cap > 0x7FFFFFFFLL || d <= 0 || d % 16 != 0 ||
+      nq < 1 || nq > 4 * kQueryTile || k < 1 || k > kListLen || max_ctas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long live = n_valid < 0 ? 0 : (n_valid < cap ? n_valid : cap);
+  const long long rows = (live + kSub - 1) / kSub * kSub;  // tiles past these are not read
+  Args a{emb, d, q, nullptr, nullptr, scales, nullptr, nullptr, 0, nq, d, rows, 0, 0};
+  TopK tk{pay, n_valid, one_minus_eta, eta, half_ep, k, part_s, part_i, nullptr};
+  int ctas = 0, rc = 0;
+  if (live > kSeedMinRows && nq > kQueryTile) {
+    // Seed: search the first kSeedRows rows (all live) into out, whose
+    // entry k - 1 per query then starts the thresholds of the full pass,
+    // so that its warps offer almost nothing from their first rows on.
+    Args seed = a;
+    seed.cap = kSeedRows;
+    if ((rc = launch_mma<kInt8, kTopK>(seed, stream, tk, max_ctas, &ctas)) != 0) return rc;
+    if ((rc = stream_merge(part_s, part_i, ctas, nq, k, out_s, out_i, st)) != 0) return rc;
+    tk.seed = out_s;
+  }
+  if ((rc = launch_mma<kInt8, kTopK>(a, stream, tk, max_ctas, &ctas)) != 0) return rc;
+  return stream_merge(part_s, part_i, ctas, nq, k, out_s, out_i, st);
+}
+
+// The most queries one dewi_int8_stream_search launch takes at dim d, in
+// whole tiles of 8 (8, 16 or 32): the queries, the rings and the selection
+// tiles of at least kMmaMinWarps warps must fit in shared memory.  0 when
+// not even one tile fits or d is not a multiple of 16.
+int dewi_int8_stream_queries_per_launch(int d) {
+  if (d <= 0 || d % 16 != 0) return 0;
+  for (int nt = 4; nt >= 1; nt >>= 1) {
+    if (mma_warps(kInt8, nt, d, kTopK) > 0) return nt * kQueryTile;
+  }
+  return 0;
+}
+
+// The most CTAs a dewi_int8_stream_search launch of nq queries at dim d
+// takes on the current device (its partial lists need that many rows);
+// minus the CUDA error where there is one.
+int dewi_int8_stream_max_ctas(int nq, int d) { return held_ctas<kInt8, kTopK>(nq, d); }
 
 const char* dewi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

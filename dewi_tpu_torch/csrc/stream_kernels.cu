@@ -1,48 +1,50 @@
-// Streaming top-k search kernels for Hopper (sm_90a).
+// Streaming top-k search kernel for Hopper (sm_90a) over f32 rows, and the
+// merge that both streaming searches end with.
 //
-// Hand-written CUDA ports of the two Pallas kernels of
-// dewi_tpu/ops/pallas_search.py that search in one pass:
+// Hand-written CUDA port of the Pallas kernel of
+// dewi_tpu/ops/pallas_search.py that searches f32 rows in one pass:
 //
-//   dewi_stream_search      <- pallas_fused_search (:129, _search_kernel :70)
-//   dewi_int8_stream_search <- pallas_int8_search  (:239, _int8_search_kernel :181)
+//   dewi_stream_search <- pallas_fused_search (:129, _search_kernel :70)
 //
-// both with _topk_via_max (:46) as the selection.  For every query q and
-// corpus row r they compute
+// with _topk_via_max (:46) as the selection.  (Its int8 twin,
+// dewi_int8_stream_search <- pallas_int8_search, runs on the tensor cores
+// in search_kernels.cu and ends with the same merge, stream_merge.)  For
+// every query q and corpus row r it computes
 //
-//   sim[q, r] = sum_d q[q, d] * row[r, d]                     (f32 rows)
-//   sim[q, r] = (sum_d bf16(q[q, d]) * row[r, d]) * scale[r]  (int8 rows)
+//   sim[q, r] = sum_d q[q, d] * row[r, d]
 //   adj[q, r] = (1 - eta) * sim + eta * pay[r, 0]
 //               + (entropy_pref * 0.5) * (pay[r, 1] + pay[r, 3])
 //
-// with rows r >= n_valid at -3.4e38 (a finite float), and return the k best
-// (adj, r) per query: descending score, and among equal scores the lower
-// row first.  With fewer than k rows above -3.4e38 the remaining slots are
-// (-3.4e38, 0).  The dot is an f32 sum of f32 products on the CUDA cores
-// (for int8 rows both operands are bf16-exact, so every product is exact);
-// the re-rank is evaluated term by term with one rounding per operation,
-// as the plain PyTorch versions in dewi_tpu_torch/ops/cuda_search.py do,
-// so given the same dot the scores agree bit for bit.
+// with rows r >= n_valid at -3.4e38 (a finite float), and returns the k
+// best (adj, r) per query: descending score, and among equal scores the
+// lower row first.  With fewer than k rows above -3.4e38 the remaining
+// slots are (-3.4e38, 0).  The dot is an f32 sum of f32 products on the
+// CUDA cores; the re-rank is evaluated term by term with one rounding per
+// operation, as the plain PyTorch version in
+// dewi_tpu_torch/ops/cuda_search.py does, so given the same dot the scores
+// agree bit for bit.
 //
-// Bound on this card: both read the corpus once and do 2*Q operations per
-// element at Q <= 32, so they are bound by device-memory bytes: the live
-// rows, their payloads (and scales) read once; the output is Q*k pairs.
+// Bound on this card: it reads the corpus once and does 2*Q operations per
+// element at Q <= 32, so it is bound by device-memory bytes: the live rows
+// and their payloads read once; the output is Q*k pairs.
 //
 // Design.  The TPU kernel walks the corpus in order and carries one
 // running [Q, k] buffer; here the live rows are split over `chunks` CTAs.
-// A CTA of 128 threads walks its 128-row tiles as the stage-1 kernels do
-// (one thread per row, rows staged 256 bytes at a time with cp.async, the
-// queries in shared memory as f32, one accumulator per query in registers)
-// and writes each tile's adjusted scores to shared memory.  Selection is
-// by warp: warp w owns queries w, w+4, ... and keeps, for each, a sorted
-// list of 32 (score, row) pairs, entry j in lane j's registers.  A tile's
+// A CTA of 128 threads walks its 128-row tiles (one thread per row, rows
+// staged 256 bytes at a time with cp.async, the queries in shared memory as
+// f32, one accumulator per query in registers) and writes each tile's
+// adjusted scores to shared memory.  Selection is by warp: warp w owns
+// queries w, w+4, ... and keeps, for each, a sorted list of 32 (score, row)
+// pairs, entry j in lane j's registers (list_offer, common.cuh).  A tile's
 // 128 scores are offered to the list 32 at a time: one ballot finds the
 // lanes whose candidate precedes the list's tail (after the first tiles,
 // usually none), and each of those is inserted by a ballot for its
 // position and one shuffle.  A CTA ends by writing its lists as
 // [chunks, Q, 32] partial results.  Tiles from ceil(n_valid / 128) on are
 // never read.  A second kernel merges the partials: one CTA per query,
-// eight warps each merging a strided share of the chunks' lists with the
-// same insertion, then warp 0 merging the eight.  The order (score, then
+// eight warps each merging a strided share of the chunks' lists (a
+// bitonic merge of two sorted lists, list_merge), then warp 0 merging the
+// eight.  The order (score, then
 // row) is total, so the result does not depend on how the rows are chunked.
 
 #include "common.cuh"
@@ -51,50 +53,14 @@ namespace {
 
 using namespace dewi;
 
-constexpr float kNegInf = -3.4e38f;    // NEG_INF of pallas_search.py
-constexpr int kListLen = 32;           // list entries: one per lane; k <= 32
+constexpr float kNegInf = kStreamNegInf;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMergeWarps = 8;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned kFull = kFullMask;
 
-enum RowKind { kF32 = 0, kI8 = 1 };
-
-// (as, ai) stands before (bs, bi) in the result: higher score, then lower row.
-__device__ __forceinline__ bool precedes(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-// Offer one candidate per lane to the warp's sorted list (entry j in lane
-// j).  A candidate enters only if it precedes the list's last entry; an
-// empty slot is (-3.4e38, 0), which no candidate of score -3.4e38 precedes,
-// so masked rows never enter.  An insertion whose candidate no longer
-// precedes the tail finds position 32 and changes nothing.
-__device__ __forceinline__ void list_offer(float& ls, int& li, float cs, int ci, int lane) {
-  const float ts = __shfl_sync(kFull, ls, kListLen - 1);
-  const int ti = __shfl_sync(kFull, li, kListLen - 1);
-  unsigned m = __ballot_sync(kFull, precedes(cs, ci, ts, ti));
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const float s = __shfl_sync(kFull, cs, src);
-    const int i = __shfl_sync(kFull, ci, src);
-    const int p = __popc(__ballot_sync(kFull, precedes(ls, li, s, i)));
-    const float us = __shfl_up_sync(kFull, ls, 1);
-    const int ui = __shfl_up_sync(kFull, li, 1);
-    if (lane > p) {
-      ls = us;
-      li = ui;
-    } else if (lane == p) {
-      ls = s;
-      li = i;
-    }
-  }
-}
-
-template <int KIND, int QT>
+template <int QT>
 __global__ void __launch_bounds__(kThreads)
 stream_partial_kernel(const uint8_t* __restrict__ emb, int row_bytes,
-                      const float* __restrict__ scales,  // [cap] (int8 rows)
                       const float* __restrict__ pay,     // [cap, 8]
                       const float* __restrict__ q,       // [nq, d]
                       int nq, int d, int n_valid, float one_minus_eta, float eta,
@@ -109,13 +75,8 @@ stream_partial_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  // Stage the queries, zero-padded to QT rows; over int8 rows they are
-  // rounded to bf16 here, as the TPU kernel casts them before the dot.
-  for (int i = tid; i < QT * d; i += kThreads) {
-    float v = (i / d) < nq ? q[i] : 0.f;
-    if constexpr (KIND == kI8) v = __bfloat162float(__float2bfloat16_rn(v));
-    qs[i] = v;
-  }
+  // Stage the queries, zero-padded to QT rows.
+  for (int i = tid; i < QT * d; i += kThreads) qs[i] = (i / d) < nq ? q[i] : 0.f;
 
   constexpr int kLists = (QT + kWarps - 1) / kWarps;  // lists per warp
   float ls[kLists];
@@ -143,29 +104,17 @@ stream_partial_kernel(const uint8_t* __restrict__ emb, int row_bytes,
       stage_slab(tile, emb, row0, row_bytes, s0, sb, tid);
       for (int c = 0; c < cpr; ++c) {
         const uint4 raw = *reinterpret_cast<const uint4*>(my + c * 16);
-        constexpr int kElems = KIND == kI8 ? 16 : 4;
-        float x[kElems];
-        if constexpr (KIND == kI8) {
-          s8x16_to_f32(raw, x);
-        } else {
-          x[0] = __uint_as_float(raw.x);
-          x[1] = __uint_as_float(raw.y);
-          x[2] = __uint_as_float(raw.z);
-          x[3] = __uint_as_float(raw.w);
-        }
-        const int dim0 = (s0 + c * 16) / (KIND == kI8 ? 1 : 4);
+        const float x[4] = {__uint_as_float(raw.x), __uint_as_float(raw.y),
+                            __uint_as_float(raw.z), __uint_as_float(raw.w)};
+        const int dim0 = (s0 + c * 16) / 4;
 #pragma unroll
         for (int qi = 0; qi < QT; ++qi) {
-          const float4* qv = reinterpret_cast<const float4*>(qs + qi * d + dim0);
+          const float4 t = *reinterpret_cast<const float4*>(qs + qi * d + dim0);
           float a = acc[qi];
-#pragma unroll
-          for (int v = 0; v < kElems / 4; ++v) {
-            const float4 t = qv[v];
-            a = fmaf(x[4 * v], t.x, a);
-            a = fmaf(x[4 * v + 1], t.y, a);
-            a = fmaf(x[4 * v + 2], t.z, a);
-            a = fmaf(x[4 * v + 3], t.w, a);
-          }
+          a = fmaf(x[0], t.x, a);
+          a = fmaf(x[1], t.y, a);
+          a = fmaf(x[2], t.z, a);
+          a = fmaf(x[3], t.w, a);
           acc[qi] = a;
         }
       }
@@ -178,13 +127,9 @@ stream_partial_kernel(const uint8_t* __restrict__ emb, int row_bytes,
     const float dewi = __fmul_rn(eta, p.x);
     const float ent = __fmul_rn(half_ep, __fadd_rn(p.y, p.w));
     const bool live = row < n_valid;
-    float scale = 1.f;
-    if constexpr (KIND == kI8) scale = scales[row];
 #pragma unroll
     for (int qi = 0; qi < QT; ++qi) {
-      float sim = acc[qi];
-      if constexpr (KIND == kI8) sim = __fmul_rn(sim, scale);
-      const float adj = __fadd_rn(__fadd_rn(__fmul_rn(one_minus_eta, sim), dewi), ent);
+      const float adj = __fadd_rn(__fadd_rn(__fmul_rn(one_minus_eta, acc[qi]), dewi), ent);
       sc[qi * kThreads + tid] = live ? adj : kNegInf;
     }
     __syncthreads();
@@ -243,7 +188,7 @@ stream_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
       }
     }
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) list_offer(ls, li, cs[u], ci[u], lane);
+    for (int u = 0; u < kAhead; ++u) list_merge(ls, li, cs[u], ci[u], lane);
   }
   ms[warp][lane] = ls;
   mi[warp][lane] = li;
@@ -251,7 +196,7 @@ stream_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
   if (warp == 0) {
     ls = kNegInf;
     li = 0;
-    for (int w = 0; w < kMergeWarps; ++w) list_offer(ls, li, ms[w][lane], mi[w][lane], lane);
+    for (int w = 0; w < kMergeWarps; ++w) list_merge(ls, li, ms[w][lane], mi[w][lane], lane);
     if (lane < k) {
       out_s[qi * k + lane] = ls;
       out_i[qi * k + lane] = li;
@@ -260,9 +205,7 @@ stream_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ pa
 }
 
 struct StreamArgs {
-  const void* emb;
-  int row_bytes;
-  const float* scales;
+  const float* emb;
   const float* pay;
   const float* q;
   int nq;
@@ -286,13 +229,13 @@ size_t stream_smem(int qt, int d) {
   return kTileBytes + sizeof(float) * qt * (static_cast<size_t>(d) + kThreads);
 }
 
-template <int KIND, int QT>
+template <int QT>
 int stream_launch_qt(const StreamArgs& a, cudaStream_t stream) {
   static std::atomic<int> smem_set_on[kMaxDevices];  // zero: static storage
   static std::mutex smem_mu;
   const size_t smem = stream_smem(QT, a.d);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto fn = stream_partial_kernel<KIND, QT>;
+  auto fn = stream_partial_kernel<QT>;
   if (smem > 48 * 1024) {
     cudaError_t e = opt_in_smem(fn, smem, smem_set_on, smem_mu);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -301,32 +244,40 @@ int stream_launch_qt(const StreamArgs& a, cudaStream_t stream) {
   const int nsub = static_cast<int>((live + kSub - 1) / kSub);
   const int sub_per_chunk = nsub > 0 ? (nsub + a.chunks - 1) / a.chunks : 1;
   fn<<<a.chunks, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(a.emb), a.row_bytes, a.scales, a.pay, a.q, a.nq, a.d,
-      a.n_valid, a.one_minus_eta, a.eta, a.half_ep, sub_per_chunk, nsub, a.part_s, a.part_i);
+      reinterpret_cast<const uint8_t*>(a.emb), a.d * 4, a.pay, a.q, a.nq, a.d, a.n_valid,
+      a.one_minus_eta, a.eta, a.half_ep, sub_per_chunk, nsub, a.part_s, a.part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  stream_merge_kernel<<<a.nq, kMergeWarps * 32, 0, stream>>>(
-      a.part_s, a.part_i, a.chunks, a.nq, a.k, a.out_s, a.out_i);
-  return static_cast<int>(cudaGetLastError());
+  return stream_merge(a.part_s, a.part_i, a.chunks, a.nq, a.k, a.out_s, a.out_i, stream);
 }
 
-template <int KIND>
 int stream_launch(const StreamArgs& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.cap <= 0 || a.cap % kSub != 0 || a.cap > 0x7FFFFFFFLL || a.row_bytes % 16 != 0 ||
+  if (a.cap <= 0 || a.cap % kSub != 0 || a.cap > 0x7FFFFFFFLL || a.d % 4 != 0 ||
       a.nq < 1 || a.k < 1 || a.k > kListLen || a.chunks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.nq <= 1) return stream_launch_qt<KIND, 1>(a, st);
-  if (a.nq <= 2) return stream_launch_qt<KIND, 2>(a, st);
-  if (a.nq <= 4) return stream_launch_qt<KIND, 4>(a, st);
-  if (a.nq <= 8) return stream_launch_qt<KIND, 8>(a, st);
-  if (a.nq <= 16) return stream_launch_qt<KIND, 16>(a, st);
-  if (a.nq <= 32) return stream_launch_qt<KIND, 32>(a, st);
+  if (a.nq <= 1) return stream_launch_qt<1>(a, st);
+  if (a.nq <= 2) return stream_launch_qt<2>(a, st);
+  if (a.nq <= 4) return stream_launch_qt<4>(a, st);
+  if (a.nq <= 8) return stream_launch_qt<8>(a, st);
+  if (a.nq <= 16) return stream_launch_qt<16>(a, st);
+  if (a.nq <= 32) return stream_launch_qt<32>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
+
+namespace dewi {
+
+int stream_merge(const float* part_s, const int* part_i, int chunks, int nq, int k,
+                 float* out_s, int* out_i, cudaStream_t stream) {
+  stream_merge_kernel<<<nq, kMergeWarps * 32, 0, stream>>>(part_s, part_i, chunks, nq, k,
+                                                            out_s, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dewi
 
 extern "C" {
 
@@ -337,26 +288,13 @@ int dewi_stream_search(const float* emb, const float* pay, const float* q, int n
                        long long cap, int n_valid, float one_minus_eta, float eta,
                        float half_ep, int k, int chunks, float* part_s, int* part_i,
                        float* out_s, int* out_i, void* stream) {
-  StreamArgs a{emb, d * 4, nullptr, pay, q, nq, d, cap, n_valid, one_minus_eta, eta, half_ep,
+  StreamArgs a{emb, pay, q, nq, d, cap, n_valid, one_minus_eta, eta, half_ep,
                k, chunks, part_s, part_i, out_s, out_i};
-  return stream_launch<kF32>(a, stream);
+  return stream_launch(a, stream);
 }
 
-// pallas_int8_search: emb [cap, d] int8, scales [cap] f32; otherwise as
-// dewi_stream_search.
-int dewi_int8_stream_search(const int8_t* emb, const float* scales, const float* pay,
-                            const float* q, int nq, int d, long long cap, int n_valid,
-                            float one_minus_eta, float eta, float half_ep, int k, int chunks,
-                            float* part_s, int* part_i, float* out_s, int* out_i,
-                            void* stream) {
-  StreamArgs a{emb, d, scales, pay, q, nq, d, cap, n_valid, one_minus_eta, eta, half_ep,
-               k, chunks, part_s, part_i, out_s, out_i};
-  return stream_launch<kI8>(a, stream);
-}
-
-// The most queries one streaming launch takes at dim d (a power of two up
-// to 32), 0 when not even one fits; the same for both row kinds, since the
-// queries are staged as f32.
+// The most queries one dewi_stream_search launch takes at dim d (a power of
+// two up to 32), 0 when not even one fits.
 int dewi_stream_queries_per_launch(int d) {
   for (int qt = 32; qt >= 1; qt >>= 1) {
     if (stream_smem(qt, d) <= kMaxSmem) return qt;

@@ -66,11 +66,16 @@ _SIGNATURES = {
     # chunks, part_scores, part_ids, out_scores, out_ids, stream
     "dewi_stream_search": (_P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
                            _P, _P, _P, _P, _P),
-    # emb, scales, then as dewi_stream_search from pay on
+    # emb, scales, then as dewi_stream_search from pay on, with max_ctas
+    # (the rows of the partial lists) in place of chunks
     "dewi_int8_stream_search": (_P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
                                 _P, _P, _P, _P, _P),
     # d
     "dewi_stream_queries_per_launch": (_I,),
+    # d
+    "dewi_int8_stream_queries_per_launch": (_I,),
+    # nq, d
+    "dewi_int8_stream_max_ctas": (_I, _I),
 }
 
 

@@ -1,8 +1,9 @@
 """Search kernels: CUDA wrappers, their plain versions, launch counts.
 
 Counterpart of ``dewi_tpu/ops/pallas_search.py``.  All ten of its Pallas
-kernels are ported here as hand-written CUDA (the stage-1 kernels in
-``dewi_tpu_torch/csrc/search_kernels.cu``, the two streaming searches in
+kernels are ported here as hand-written CUDA (the stage-1 kernels and the
+int8 streaming search in ``dewi_tpu_torch/csrc/search_kernels.cu``, the f32
+streaming search and the merge both streaming searches end with in
 ``dewi_tpu_torch/csrc/stream_kernels.cu``):
 
 ======================  ======================================  ===============================  ============
@@ -33,7 +34,14 @@ queries tiles of 8 columns, each warp a persistent worker that walks
 8 KB slabs (32 rows x 256 bytes; 64 rows x 128 bytes of int4 rows).  With the
 product there they are bound by device-memory bytes at every Q <= 32, and
 one code path serves every Q, so a score does not depend on how many
-queries ride with it.
+queries ride with it.  ``int8_stream_search`` runs on the same kernel, its
+int8 rows in a third mode that re-ranks each row group's scores, masks the
+rows past ``n_valid`` and keeps each query's best k in per-warp lists (a
+vote skips the selection where no score beats a list's k-th entry or the
+CTA's threshold; above 8 queries a first pass over the first 32,768 rows
+seeds those thresholds); the CTAs' lists are then merged.
+``stream_search`` over f32 rows keeps its one-thread-per-row kernel on the
+CUDA cores.
 
 Each kernel takes only some dims (``kernel_takes``): int8 rows a multiple
 of 16, bf16 rows of 8, packed int4 rows of 32, and on the card as many as
@@ -89,9 +97,14 @@ MAX_QUERIES = 32  # queries per launch: the kernel keeps them all on chip
 STREAM_NEG_INF = -3.4e38
 BLOCK = 1024
 STREAM_MAX_K = 32       # the kernels keep lists of 32 candidates, one per lane
-# Live rows per CTA of a streaming search: 2048 rows give 489 CTAs at 1M
+# Live rows per CTA of ``stream_search``: 2048 rows give 489 CTAs at 1M
 # rows, which all 132 SMs hold at once.
 STREAM_CHUNK_ROWS = 2048
+# CTAs of ``int8_stream_search``'s persistent grid: None for as many as the
+# card holds at once (fewer where the live rows are fewer), a number for at
+# most that many (the card tests split duplicated rows over warps and CTAs
+# with it).
+INT8_STREAM_CTAS: Optional[int] = None
 # Corpus kinds of dewi_queries_per_launch.
 _KIND_INT8, _KIND_BF16, _KIND_S4, _KIND_S8 = 0, 1, 2, 3
 # kernel_takes' kinds: (dewi_queries_per_launch kind, the multiple the dim
@@ -618,34 +631,101 @@ def _check_stream(name: str, emb: torch.Tensor, emb_dtype: torch.dtype,
         _require(d % step == 0, f"{name}: dim {d} must be a multiple of {step}")
 
 
-def _stream_launch(name: str, fn_name: str, emb: torch.Tensor, lead: Tuple[int, ...],
-                   payloads: torch.Tensor, queries: torch.Tensor, n_valid: int,
-                   eta: float, entropy_pref: float, k: int
+def _stream_scalars(eta: float, entropy_pref: float) -> Tuple[float, float, float]:
+    """(1 - eta, eta, entropy_pref / 2), rounded as the reference's f32
+    scalars; they go to the kernels by value."""
+    eta32 = np.float32(eta)
+    return (float(np.float32(1.0) - eta32), float(eta32),
+            float(np.float32(entropy_pref) * np.float32(0.5)))
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_group(fn_name: str, d: int) -> int:
+    return int(getattr(_library(), fn_name)(d))
+
+
+def stream_queries_per_launch(name: str, d: int) -> int:
+    """Queries per launch of the streaming search ``name``
+    (``"stream_search"`` or ``"int8_stream_search"``) at dim ``d`` on the
+    card: at most ``MAX_QUERIES``, fewer where the kernel's shared memory
+    (staged queries; for the int8 kernel also its rings and top-k lists)
+    does not hold that many, 0 where it holds not even one (one
+    query for ``stream_search``, one tile of 8 for ``int8_stream_search``).
+    The wrapper launches once per group of this many queries."""
+    fn = {"stream_search": "dewi_stream_queries_per_launch",
+          "int8_stream_search": "dewi_int8_stream_queries_per_launch"}[name]
+    return min(_stream_group(fn, d), MAX_QUERIES)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_stream_ctas(device: torch.device, nq: int, d: int) -> int:
+    """CTAs the card holds at once of the int8 streaming kernel for ``nq``
+    queries at dim ``d``: the most its persistent grid takes."""
+    lib = _library()
+    with torch.cuda.device(device):
+        n = int(lib.dewi_int8_stream_max_ctas(nq, d))
+    if n <= 0:
+        raise RuntimeError(f"int8_stream_search: no launch configuration at Q={nq}, D={d} "
+                           f"({-n}: {lib.dewi_error_string(-n).decode()})")
+    return n
+
+
+def _stream_launch(emb: torch.Tensor, payloads: torch.Tensor, queries: torch.Tensor,
+                   n_valid: int, eta: float, entropy_pref: float, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch a streaming search once per query group: the partial kernel
+    """Launch ``stream_search`` once per query group: the partial kernel
     over ``chunks`` CTAs, then the merge, both inside one library call."""
+    name = "stream_search"
     nq, (cap, d) = queries.shape[0], emb.shape
     dev = emb.device
-    g = int(_library().dewi_stream_queries_per_launch(d))
+    g = stream_queries_per_launch(name, d)
     _require(g > 0, f"{name}: dim {d} too wide for one query in shared memory")
-    g = min(g, MAX_QUERIES)
     n_valid = int(n_valid)
     live = min(max(n_valid, 0), cap)
     chunks = max(1, -(-live // STREAM_CHUNK_ROWS))
-    # The scalars go by value, rounded as the reference's f32 scalars.
-    eta32 = np.float32(eta)
-    one_minus_eta = np.float32(1.0) - eta32
-    half_ep = np.float32(entropy_pref) * np.float32(0.5)
     part_s = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.float32, device=dev)
     part_i = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.int32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     for i in range(0, nq, g):
         q = queries[i:i + g]
-        _launch(name, fn_name, dev, *lead, payloads.data_ptr(), q.data_ptr(), q.shape[0], d,
-                cap, n_valid, float(one_minus_eta), float(eta32), float(half_ep), k, chunks,
-                part_s.data_ptr(), part_i.data_ptr(), out_s[i:i + g].data_ptr(),
-                out_i[i:i + g].data_ptr(), _stream(emb))
+        _launch(name, "dewi_stream_search", dev, emb.data_ptr(), payloads.data_ptr(),
+                q.data_ptr(), q.shape[0], d, cap, n_valid,
+                *_stream_scalars(eta, entropy_pref), k, chunks, part_s.data_ptr(),
+                part_i.data_ptr(), out_s[i:i + g].data_ptr(), out_i[i:i + g].data_ptr(),
+                _stream(emb))
+    return out_s, out_i
+
+
+def _int8_stream_launch(emb_i8: torch.Tensor, scales: torch.Tensor, payloads: torch.Tensor,
+                        queries: torch.Tensor, n_valid: int, eta: float,
+                        entropy_pref: float, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``int8_stream_search`` once per query group: the tensor-core
+    kernel on a persistent grid of at most ``INT8_STREAM_CTAS`` CTAs (as
+    many as the card holds at once when None), then the merge of their
+    lists, both inside one library call."""
+    name = "int8_stream_search"
+    nq, (cap, d) = queries.shape[0], emb_i8.shape
+    dev = emb_i8.device
+    g = stream_queries_per_launch(name, d)
+    _require(g > 0, f"{name}: dim {d} too wide for one tile of 8 queries in shared memory")
+    _require(INT8_STREAM_CTAS is None or INT8_STREAM_CTAS >= 1,
+             f"{name}: INT8_STREAM_CTAS must be None or at least 1, got {INT8_STREAM_CTAS}")
+    sizes = {min(g, nq - i) for i in range(0, nq, g)}
+    ctas = max(_int8_stream_ctas(dev, s, d) for s in sizes)
+    if INT8_STREAM_CTAS is not None:
+        ctas = min(ctas, INT8_STREAM_CTAS)
+    part_s = torch.empty((ctas, min(g, nq), STREAM_MAX_K), dtype=torch.float32, device=dev)
+    part_i = torch.empty((ctas, min(g, nq), STREAM_MAX_K), dtype=torch.int32, device=dev)
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    for i in range(0, nq, g):
+        q = queries[i:i + g]
+        _launch(name, "dewi_int8_stream_search", dev, emb_i8.data_ptr(), scales.data_ptr(),
+                payloads.data_ptr(), q.data_ptr(), q.shape[0], d, cap, int(n_valid),
+                *_stream_scalars(eta, entropy_pref), k, ctas, part_s.data_ptr(),
+                part_i.data_ptr(), out_s[i:i + g].data_ptr(), out_i[i:i + g].data_ptr(),
+                _stream(emb_i8))
     return out_s, out_i
 
 
@@ -674,8 +754,7 @@ def stream_search(embeddings: torch.Tensor, payloads: torch.Tensor,
     if embeddings.device.type == "cpu":
         return stream_search_plain(embeddings, payloads, queries, n_valid, eta,
                                    entropy_pref, k)
-    return _stream_launch(name, "dewi_stream_search", embeddings, (embeddings.data_ptr(),),
-                          payloads, queries, n_valid, eta, entropy_pref, k)
+    return _stream_launch(embeddings, payloads, queries, n_valid, eta, entropy_pref, k)
 
 
 def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
@@ -687,7 +766,12 @@ def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
     Replaces ``pallas_int8_search`` (dewi_tpu/ops/pallas_search.py:239):
     ``sim = (bf16(q) . row) * scale[row]`` with an f32 sum of exact
     products, then the same re-rank, mask, order and empty slots.  Bound:
-    bytes (the live int8 rows, their scales and payloads read once).
+    bytes (the live int8 rows, their scales and payloads read once).  On
+    the card the dot runs on the tensor cores (the stage-1 kernel's int8
+    rows in its top-k mode), so it is summed in another order than the
+    plain version's and may differ from it by a few ulps; the dim must be a
+    multiple of 16 and one tile of 8 queries must fit in shared memory
+    (``stream_queries_per_launch``), or it raises.
     """
     name = "int8_stream_search"
     _check_stream(name, emb_i8, torch.int8, payloads, queries, k, block, scales)
@@ -696,15 +780,14 @@ def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
     if emb_i8.device.type == "cpu":
         return int8_stream_search_plain(emb_i8, scales, payloads, queries, n_valid, eta,
                                         entropy_pref, k)
-    return _stream_launch(name, "dewi_int8_stream_search", emb_i8,
-                          (emb_i8.data_ptr(), scales.data_ptr()), payloads, queries,
-                          n_valid, eta, entropy_pref, k)
+    return _int8_stream_launch(emb_i8, scales, payloads, queries, n_valid, eta,
+                               entropy_pref, k)
 
 
 __all__ = [
     "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES", "BLOCK",
     "STREAM_NEG_INF", "STREAM_MAX_K",
-    "launch_counts", "reset_launch_counts", "kernel_takes",
+    "launch_counts", "reset_launch_counts", "kernel_takes", "stream_queries_per_launch",
     "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
     "scores_matrix_s8", "bmax_s8", "bmax_t", "bmax_s8_t",
     "stream_search", "int8_stream_search",

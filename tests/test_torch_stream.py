@@ -137,11 +137,23 @@ class TestStreamSearch:
         assert cs.launch_counts["stream_search"] == 0
 
 
-def _int8_arrays(seed=11):
-    emb, pay, q = setup_arrays(cap=2048, d=64, q=3, seed=seed)
+def _int8_arrays(seed=11, cap=2048, d=64, q=3):
+    emb, pay, q = setup_arrays(cap=cap, d=d, q=q, seed=seed)
     e8 = np.clip(np.round(emb * 127), -127, 127).astype(np.int8)
     sc = (np.abs(emb).max(axis=1) / 127.0).astype(np.float32)
     return emb, e8, sc, pay, q
+
+
+def run_int8_both(jx, cap, d, nq, n_valid, k, block, seed=13):
+    jnp, ps = jx
+    _, e8, sc, pay, q = _int8_arrays(seed=seed, cap=cap, d=d, q=nq)
+    s_ref, i_ref = ps.pallas_int8_search(
+        jnp.asarray(e8), jnp.asarray(sc), jnp.asarray(pay), jnp.asarray(q),
+        jnp.int32(n_valid), jnp.float32(0.25), jnp.float32(0.1), k=k, block=block,
+        interpret=True)
+    s, i = cs.int8_stream_search(T(e8), T(sc), T(pay), T(q), n_valid, 0.25, 0.1, k=k,
+                                 block=block)
+    return s, i, s_ref, i_ref
 
 
 class TestInt8StreamSearch:
@@ -172,6 +184,27 @@ class TestInt8StreamSearch:
         ref = np.argsort(-adj, axis=1)[:, :10]
         for a, b in zip(i.numpy(), ref):
             assert len(set(a.tolist()) & set(b.tolist())) >= 9
+
+    # The edges of the card kernel's tiling: 32-row groups, 128-row tiles
+    # (the rows walked end at a tile), tiles of 8 queries, lists of 32.
+    @pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 127, 129])
+    def test_live_rows_into_a_unit(self, jx, n_valid):
+        """``n_valid`` rows into a tile, and 512 rows further on: the rows
+        past it never appear, and with one live row the other slots are
+        (-3.4e38, 0) (one block, where the reference gives those ids)."""
+        for base in (0, 512):
+            s, i, s_ref, i_ref = run_int8_both(jx, 1024, 48, 9, base + n_valid, 10, 1024)
+            assert int(i.max()) < base + n_valid
+            assert_same_stream(s, i, s_ref, i_ref)
+
+    @pytest.mark.parametrize("nq", [1, 7, 8, 9, 33])
+    def test_queries_around_a_tile(self, jx, nq):
+        assert_same_stream(*run_int8_both(jx, 1024, 112, nq, 1000, 32, 256))
+
+    @pytest.mark.parametrize("d", [16, 48, 112])
+    @pytest.mark.parametrize("k", [1, 10, 32])
+    def test_k_and_dims(self, jx, k, d):
+        assert_same_stream(*run_int8_both(jx, 1024, d, 5, 1000, k, 512, seed=d + k))
 
     def test_checks(self):
         _, e8, sc, pay, q = _int8_arrays()
@@ -220,7 +253,7 @@ def _card_same(got, want):
 ])
 def test_card_stream_search(cuda_device, cap, d, nq, n_valid, k):
     emb, _, _, pay, q = _card_inputs(cuda_device, cap, d, nq)
-    group = 32 if d <= 1024 else 16
+    group = cs.stream_queries_per_launch("stream_search", d)
     before = cs.launch_counts["stream_search"]
     got = cs.stream_search(emb, pay, q, n_valid, 0.25, 0.1, k=k)
     assert cs.launch_counts["stream_search"] == before + -(-nq // group)
@@ -235,7 +268,7 @@ def test_card_stream_search(cuda_device, cap, d, nq, n_valid, k):
 ])
 def test_card_int8_stream_search(cuda_device, cap, d, nq, n_valid, k):
     _, e8, sc, pay, q = _card_inputs(cuda_device, cap, d, nq)
-    group = 32 if d <= 1024 else 16
+    group = cs.stream_queries_per_launch("int8_stream_search", d)
     before = cs.launch_counts["int8_stream_search"]
     got = cs.int8_stream_search(e8, sc, pay, q, n_valid, 0.25, 0.1, k=k)
     assert cs.launch_counts["int8_stream_search"] == before + -(-nq // group)
@@ -243,10 +276,74 @@ def test_card_int8_stream_search(cuda_device, cap, d, nq, n_valid, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk_rows", [128, 1024, 1 << 20])
-def test_card_ties_and_chunking(cuda_device, chunk_rows, monkeypatch):
-    """Duplicated rows: the lower row first, whatever the chunking."""
+@pytest.mark.parametrize("cap,d,nq,n_valid,k", [
+    # live rows into a 32-row group and a 128-row tile, none, and fewer than k
+    *[(65536, 64, 9, n, 10) for n in (1, 31, 32, 33, 127, 129, 32768 + 33, 0)],
+    (65536, 64, 3, 20, 32),
+    # queries around the tiles of 8 and the launch of 32
+    *[(65536, 112, nq, 60001, 32) for nq in (1, 7, 8, 9, 16, 17, 32, 33)],
+    # k and dims that end inside a 64-byte chunk
+    *[(16384, d, 5, 16000, k) for d in (16, 48, 112) for k in (1, 10, 32)],
+    # wide dims: fewer queries per launch
+    (8192, 2048, 40, 8000, 10), (4096, 8192, 20, 4000, 10),
+    # live rows past four seed prefixes: a seeding pass, then the full one
+    (262144, 48, 9, 131073, 10), (262144, 64, 33, 262000, 32),
+])
+def test_card_int8_stream_edges(cuda_device, cap, d, nq, n_valid, k):
+    _, e8, sc, pay, q = _card_inputs(cuda_device, cap, d, nq, seed=d + nq)
+    group = cs.stream_queries_per_launch("int8_stream_search", d)
+    assert group > 0
+    before = cs.launch_counts["int8_stream_search"]
+    got = cs.int8_stream_search(e8, sc, pay, q, n_valid, 0.25, 0.1, k=k)
+    assert cs.launch_counts["int8_stream_search"] == before + -(-nq // group)
+    _card_same(got, cs.int8_stream_search_plain(e8, sc, pay, q, n_valid, 0.25, 0.1, k=k))
+    assert int(got[1].max()) < max(n_valid, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 2, 3, None])
+def test_card_int8_ties_across_warps_and_ctas(cuda_device, ctas, monkeypatch):
+    """Four equal rows that rank first for query 0, in the row groups that
+    warps 0, 4, 6 and 2 of one CTA walk when the grid has one, and that
+    fall on two CTAs with two or three: the lower row first, and the same
+    answer whatever the grid."""
+    monkeypatch.setattr(cs, "INT8_STREAM_CTAS", ctas)
+    _, e8, sc, pay, q = _card_inputs(cuda_device, 8192, 64, 4)
+    q8 = torch.clamp(torch.round(q[0] / q[0].abs().max() * 127), -127, 127).to(torch.int8)
+    dup = [5, 130, 2000, 8000]
+    e8[dup], sc[dup], pay[dup] = q8, q[0].abs().max() / 127.0, 1.0
+    got = cs.int8_stream_search(e8, sc, pay, q, 8100, 0.25, 0.1, k=10)
+    _card_same(got, cs.int8_stream_search_plain(e8, sc, pay, q, 8100, 0.25, 0.1, k=10))
+    assert got[1][0, :4].tolist() == dup
+    assert len(set(got[0][0, :4].tolist())) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [3, None])
+def test_card_int8_ties_around_the_seed(cuda_device, ctas, monkeypatch):
+    """Where a first pass over the first 32,768 rows seeds the thresholds
+    (more than 131,072 live rows, more than 8 queries):
+    equal rows on both sides of that prefix, which rank first for query 0,
+    come back lower row first, and the scores equal to the seed's k-th are
+    not pruned."""
+    monkeypatch.setattr(cs, "INT8_STREAM_CTAS", ctas)
+    _, e8, sc, pay, q = _card_inputs(cuda_device, 262144, 64, 12)
+    q8 = torch.clamp(torch.round(q[0] / q[0].abs().max() * 127), -127, 127).to(torch.int8)
+    dup = [5, 32767, 32768, 200000, 261999]
+    e8[dup], sc[dup], pay[dup] = q8, q[0].abs().max() / 127.0, 1.0
+    for k in (2, 3, 5, 10):
+        got = cs.int8_stream_search(e8, sc, pay, q, 262000, 0.25, 0.1, k=k)
+        _card_same(got, cs.int8_stream_search_plain(e8, sc, pay, q, 262000, 0.25, 0.1, k=k))
+        assert got[1][0, :min(k, 5)].tolist() == dup[:min(k, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows,ctas", [(128, 1), (1024, 3), (1 << 20, None)])
+def test_card_ties_and_chunking(cuda_device, chunk_rows, ctas, monkeypatch):
+    """Duplicated rows: the lower row first, whatever the chunking (the
+    rows per CTA of ``stream_search``, the grid of ``int8_stream_search``)."""
     monkeypatch.setattr(cs, "STREAM_CHUNK_ROWS", chunk_rows)
+    monkeypatch.setattr(cs, "INT8_STREAM_CTAS", ctas)
     emb, e8, sc, pay, q = _card_inputs(cuda_device, 8192, 64, 4)
     for src, dst in ((5, 8000), (5, 130), (4000, 17)):
         for t in (emb, e8, sc, pay):
@@ -276,3 +373,11 @@ def test_card_stream_raises(cuda_device):
                          block=128)
     with pytest.raises(ValueError, match="same|must be on"):
         cs.int8_stream_search(e8, sc.cpu(), pay, q, 4096, 0.25, 0.1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cs.int8_stream_search(e8[:, :56].contiguous(), sc, pay, q[:, :56].contiguous(), 4096,
+                              0.25, 0.1)
+    with pytest.raises(ValueError, match="too wide"):
+        wide = torch.zeros(128, 32768, dtype=torch.int8, device=cuda_device)
+        cs.int8_stream_search(wide, sc[:128].contiguous(), pay[:128].contiguous(),
+                              torch.zeros(1, 32768, device=cuda_device), 128, 0.25, 0.1,
+                              block=128)
