@@ -54,7 +54,19 @@ public entry points:
    both probe implementations timed, recall@10 on the random corpus held
    to a floor, and on a clustered 200k corpus (512 Gaussian modes,
    ``nlist=512``) asserted >= 0.99;
-8. one JSON line with every kernel's launches, error and times.
+8. the signal models and estimators at the reference's default widths
+   (``gpt2``, ``vit-mae-base``, ``clip-vit-base-patch32``; seeded weights):
+   a msgpack save/load round trip of each model, text entropy over 2,048
+   synthetic texts across every length bucket plus 8 longer than the
+   512-token context (windows), image entropy over 2,048 synthetic uint8
+   images made on the card (``DeviceImages``), CLIP ``batch_compute`` on
+   the pairs, each with docs/s and peak memory; one batch per model in
+   bfloat16 against the same weights in float32 on the card; then 10,000
+   docs scored and CLIP-embedded into ``DewiIndex(backend="int8",
+   int8_queries=True)`` whose provenance names the saved CLIP checkpoint,
+   and 64 text queries through ``SearchServer``, each equal to
+   ``encode_texts`` + ``search_batch``, with ``scores_matrix_s8`` launched;
+9. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -583,7 +595,7 @@ def search_blocks(index, queries: torch.Tensor) -> torch.Tensor:
     return torch.cat(ids)
 
 
-def device_profile(fn, reps: int) -> dict:
+def device_profile(fn, reps: int, top_n: int = 4) -> dict:
     """Device busy time per call, launches per call and the costliest
     kernels, from ``torch.profiler`` (device time is summed over CUDA kernel
     and memory events; "not measured" when the profiler sees none)."""
@@ -600,7 +612,7 @@ def device_profile(fn, reps: int) -> dict:
     total_us = sum(e.self_device_time_total for e in dev)
     if not dev or total_us <= 0:
         return {"device_ms": "not measured"}
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]
     return {
         "device_ms": total_us / reps / 1e3,
         "device_ops_per_call": sum(e.count for e in dev) / reps,
@@ -1044,6 +1056,305 @@ def phase_bench() -> dict:
     return launches
 
 
+# ---- phase 8: signal models and estimators -----------------------------------
+
+SIGNAL_SEED = 0
+N_SIGNAL_DOCS = 2048        # texts, images and pairs per estimator
+N_LONG_TEXTS = 8            # texts longer than the 512-token context
+N_SERVE_DOCS = 10_000       # the text-query leg's corpus (int8 index, cap 16,384)
+N_TEXT_QUERIES = 64
+# bfloat16 against float32 on the same weights, one batch per model: the
+# per-doc NLL mean and q90 and the MAE losses within 3e-2 relative, the
+# CLIP embeddings at cosine >= 0.999 (the bounds the CPU tests hold the
+# port's bfloat16 to against the reference's).
+BF16_RTOL, BF16_COS = 3e-2, 0.999
+_WORDS = ("entropy", "signal", "image", "caption", "corpus", "index", "query", "token",
+          "a", "the", "of", "and", "with", "over", "under", "river", "mountain", "city",
+          "night", "blue", "red", "quiet", "loud", "graph", "kernel", "tensor", "photo",
+          "dog", "cat", "bicycle", "market", "ocean", "forest", "winter", "summer")
+
+
+def synthetic_texts(n: int, seed: int, lo: int = 1, hi: int = 500) -> list:
+    """``n`` texts of random words, byte lengths uniform in ``[lo, hi]``."""
+    rng = np.random.default_rng(seed)
+    words = rng.choice(_WORDS, size=(n, hi // 2 + 1))
+    lens = rng.integers(lo, hi + 1, n)
+    return [" ".join(w)[:m] for w, m in zip(words, lens)]
+
+
+def rel_dev(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def timed_run(fn) -> tuple:
+    """``fn()``, its wall seconds to a ``synchronize`` and its peak memory (GB)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated() / 1e9
+
+
+def signal_profile(fn, reps: int = 3) -> dict:
+    """Host-clock ms per call (median of ``reps``), the device's busy ms per
+    call from the profiler, the idle share between them, and the bound: the
+    matmul operations of one call (``FlopCounterMode``, padded rows
+    included) over the bf16 tensor-core peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    flops = counter.get_total_flops()
+    walls = []
+    for _ in range(reps):
+        _, sec, _ = timed_run(fn)
+        walls.append(sec * 1e3)
+    prof = device_profile(fn, reps=reps, top_n=6)
+    wall = statistics.median(walls)
+    busy = prof["device_ms"]
+    measured = isinstance(busy, float)
+    return {"wall_ms": wall, "idle_share": 1 - busy / wall if measured else "not measured",
+            "matmul_flops": flops, "bound_ms": flops / BF16_OPS_PER_S * 1e3,
+            "bound_by": "operations",
+            "bound_share_of_device": flops / BF16_OPS_PER_S * 1e3 / busy if measured
+            else "not measured", **prof}
+
+
+def checkpoint_round_trip(name: str, model, fresh, path: Path) -> None:
+    """``save_params`` then ``load_params`` into a model of another seed:
+    every tensor comes back bit for bit."""
+    from dewi_tpu_torch.models import registry
+
+    t = time.perf_counter()
+    registry.save_params(model, path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    registry.load_params(fresh, path)
+    load_s = time.perf_counter() - t
+    want, got = model.state_dict(), fresh.state_dict()
+    check(want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want),
+          f"signals: {name} checkpoint round trip changed a tensor")
+    log(f"signals checkpoint {name}: " + json.dumps({
+        "params": registry.param_count(model), "bytes": path.stat().st_size,
+        "save_s": save_s, "load_s": load_s, "bit_equal": True}))
+
+
+def bf16_against_f32(lm_est, mae_est, clip_est, texts: list, images: torch.Tensor) -> dict:
+    """One batch per model in bfloat16 (the default) and in float32 with the
+    same weights, on the card."""
+    import dataclasses
+
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.lm import token_nll
+    from dewi_tpu_torch.ops.robust import masked_mean_and_quantiles
+    from dewi_tpu_torch.signals.image_entropy import normalize_images
+
+    def f32_twin(init, model):
+        twin = init(dataclasses.replace(model.cfg, dtype="float32"), seed=SIGNAL_SEED + 7)
+        twin.load_state_dict(model.state_dict())
+        return twin
+
+    out = {}
+    with torch.no_grad():
+        ids, mask = lm_est.tokenizer.encode_batch(texts[:64], 512, pad_to=512)
+        ids = torch.from_numpy(ids).cuda().long()
+        mask = torch.from_numpy(mask).cuda()
+        qs = torch.tensor([0.9], device="cuda")
+        stats = []
+        for model in (lm_est.model, f32_twin(registry.init_lm, lm_est.model)):
+            nll, valid = token_nll(model(ids, mask), ids, mask)
+            stats.append(masked_mean_and_quantiles(nll, valid, qs))
+        out["lm_nll_mean_rel"] = rel_dev(stats[0][0], stats[1][0])
+        out["lm_nll_q90_rel"] = rel_dev(stats[0][1], stats[1][1])
+
+        x = normalize_images(images[:64])
+        noise = torch.rand(64, mae_est.cfg.num_patches, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+        losses = [m(x, noise=noise) for m in (mae_est.model,
+                                               f32_twin(registry.init_mae, mae_est.model))]
+        out["mae_loss_rel"] = rel_dev(losses[0], losses[1])
+
+        cl = clip_est.model
+        twin = f32_twin(registry.init_clip, cl)
+        ids, mask = clip_est.tokenizer.encode_batch(texts[:64], 77, pad_to=77)
+        ids = torch.from_numpy(ids).cuda().long()
+        mask = torch.from_numpy(mask).cuda()
+        t_cos = (cl.encode_text(ids, mask) * twin.encode_text(ids, mask)).sum(1)
+        i_cos = (cl.encode_image(x) * twin.encode_image(x)).sum(1)
+        out["clip_text_cos_min"] = float(t_cos.min())
+        out["clip_image_cos_min"] = float(i_cos.min())
+    check(out["lm_nll_mean_rel"] <= BF16_RTOL and out["lm_nll_q90_rel"] <= BF16_RTOL
+          and out["mae_loss_rel"] <= BF16_RTOL, f"signals: bf16 vs f32 {out}")
+    check(min(out["clip_text_cos_min"], out["clip_image_cos_min"]) >= BF16_COS,
+          f"signals: bf16 vs f32 {out}")
+    return out
+
+
+def phase_text_queries(clip_est, clip_ckpt: Path, lm_est, mae_est, card: str) -> int:
+    """10,000 docs through the three estimators and ``DewiScorer`` into an
+    int8-query index whose provenance names the CLIP checkpoint; 64 text
+    queries through ``SearchServer``, each equal to ``encode_texts`` +
+    ``search_batch``.  Returns ``scores_matrix_s8``'s launches."""
+    from dewi_tpu_torch import DewiIndex, DewiScorer, SearchServer
+    from dewi_tpu_torch.io import DeviceImages
+    from dewi_tpu_torch.models.registry import checkpoint_fingerprint
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    t0 = time.perf_counter()
+    texts = synthetic_texts(N_SERVE_DOCS, SIGNAL_SEED + 3)
+    g = torch.Generator(device="cuda").manual_seed(SIGNAL_SEED + 4)
+    images = DeviceImages(torch.randint(0, 256, (N_SERVE_DOCS, 224, 224, 3), device="cuda",
+                                        dtype=torch.uint8, generator=g))
+    ht_mean, ht_q90, _ = lm_est.batch_compute_stats(texts)
+    hi_mean, hi_q90 = mae_est.batch_compute_stats(images)
+    t_emb = clip_est.encode_texts_tensor(texts)
+    i_emb = clip_est.encode_images_tensor(images)
+    # Redundancy and noise are zero columns until their estimators are ported.
+    zeros = np.zeros(N_SERVE_DOCS, np.float32)
+    sig = torch.from_numpy(np.stack([ht_mean, ht_q90, hi_mean, hi_q90,
+                                     (t_emb * i_emb).sum(1).cpu().numpy(), zeros, zeros],
+                                    axis=1)).cuda()
+    dewi = DewiScorer().fit_and_score(sig)
+    emb = t_emb + i_emb  # a multimodal doc: the normalized mean of its two embeddings
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    index = DewiIndex(dim=clip_est.cfg.d_embed, backend="int8", int8_queries=True,
+                      rerank_eta=ETA, entropy_pref=EP)
+    index.add_batch([f"doc{i}" for i in range(N_SERVE_DOCS)], emb.cpu().numpy(),
+                    torch.cat([dewi[:, None], sig], dim=1).cpu().numpy())
+    index.build()
+    index.encoder = {"model": "clip-vit-base-patch32", "tokenizer": "byte",
+                     "seed": SIGNAL_SEED, "checkpoint": str(clip_ckpt),
+                     "checkpoint_fingerprint": checkpoint_fingerprint(clip_ckpt),
+                     "d_embed": clip_est.cfg.d_embed}
+    sync()
+    build_s = time.perf_counter() - t0
+    check(index._backend.store.capacity == 16_384, "signals: text-query index capacity")
+    check(bool(torch.isfinite(dewi).all()), "signals: DEWI scores")
+
+    queries = synthetic_texts(N_TEXT_QUERIES, SIGNAL_SEED + 5, lo=3, hi=120)
+    srv = SearchServer(index, port=0, max_batch=cs.MAX_QUERIES)
+    srv.start()
+    answers: list = [None] * N_TEXT_QUERIES
+    try:
+        post(srv.port, "/search", {"text": queries[0], "k": K})  # builds the encoder
+        cs.reset_launch_counts()
+        t = time.perf_counter()
+
+        def client(c: int) -> None:
+            for i in range(c, N_TEXT_QUERIES, 8):
+                answers[i] = post(srv.port, "/search", {"text": queries[i], "k": K})
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        serve_s = time.perf_counter() - t
+        launched = cs.launch_counts["scores_matrix_s8"]
+    finally:
+        srv.shutdown()
+    s, rows = index.search_batch(clip_est.encode_texts(queries), k=K)
+    s, rows = s.cpu().numpy(), rows.cpu().numpy()
+    max_diff = 0.0
+    for i, a in enumerate(answers):
+        check(a is not None and a["ids"] == [index.doc_ids[r] for r in rows[i]],
+              f"signals: text query {i} differs from encode_texts + search_batch")
+        max_diff = max(max_diff, float(np.abs(np.asarray(a["scores"]) - s[i]).max()))
+    check(max_diff <= 1e-6, f"signals: text-query scores differ by {max_diff}")
+    check(launched > 0, "signals: the text queries launched no scores_matrix_s8")
+    # The query encoder alone: one text at a time, as the server calls it.
+    enc_ms = []
+    for q in queries:
+        _, sec, _ = timed_run(lambda: clip_est.encode_texts([q]))
+        enc_ms.append(sec * 1e3)
+    log("signals query encoder: " + json.dumps({
+        "encode_p50_ms": statistics.median(enc_ms),
+        **signal_profile(lambda: clip_est.encode_texts([queries[0]])), "card": card}))
+    log("signals text queries: " + json.dumps({
+        "docs": N_SERVE_DOCS, "build_s": build_s, "queries": N_TEXT_QUERIES,
+        "wall_s": serve_s, "queries_per_s": N_TEXT_QUERIES / serve_s,
+        "scores_matrix_s8_launches": launched, "answers_equal_direct": True,
+        "scores_max_abs_diff": max_diff, "card": card}))
+    return launched
+
+
+def phase_signals(card: str) -> dict:
+    """The signal estimators at the reference's default widths on the card,
+    then the text-query leg; returns the kernel launches of this phase."""
+    from dewi_tpu_torch.io import DeviceImages
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.signals import (CrossModalDependency, ImageEntropyEstimator,
+                                        TextEntropyEstimator, bucket_length)
+
+    lm_est = TextEntropyEstimator("gpt2", batch_size=64, max_length=512, seed=SIGNAL_SEED)
+    mae_est = ImageEntropyEstimator("vit-mae-base", batch_size=64, seed=SIGNAL_SEED)
+    clip_cfg = registry.clip_config("clip-vit-base-patch32")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        tmp = Path(tmp)
+        checkpoint_round_trip("lm", lm_est.model,
+                              registry.init_lm(lm_est.cfg, seed=SIGNAL_SEED + 9), tmp / "lm.msgpack")
+        checkpoint_round_trip("mae", mae_est.model,
+                              registry.init_mae(mae_est.cfg, seed=SIGNAL_SEED + 9),
+                              tmp / "mae.msgpack")
+        clip_ckpt = tmp / "clip.msgpack"
+        checkpoint_round_trip("clip", registry.init_clip(clip_cfg, seed=SIGNAL_SEED),
+                              registry.init_clip(clip_cfg, seed=SIGNAL_SEED + 9), clip_ckpt)
+        clip_est = CrossModalDependency("clip-vit-base-patch32", batch_size=128,
+                                        checkpoint=str(clip_ckpt))
+
+        texts = synthetic_texts(N_SIGNAL_DOCS, SIGNAL_SEED + 1)
+        texts += synthetic_texts(N_LONG_TEXTS, SIGNAL_SEED + 2, lo=1500, hi=4000)
+        counts = lm_est.tokenizer.encode_lengths(texts, 1 << 30)
+        buckets = {bucket_length(max(int(n), 2)) for n in counts if n <= 512}
+        check(buckets == {32, 64, 128, 256, 512} and int((counts > 512).sum()) == N_LONG_TEXTS,
+              f"signals: texts cover buckets {sorted(buckets)}")
+        g = torch.Generator(device="cuda").manual_seed(SIGNAL_SEED + 6)
+        images = DeviceImages(torch.randint(0, 256, (N_SIGNAL_DOCS, 224, 224, 3),
+                                            device="cuda", dtype=torch.uint8, generator=g))
+        lm_est.batch_compute_stats(texts[:64])  # warm-up: allocator and cuBLAS handles
+        mae_est.batch_compute_stats(images.base[:64])
+        clip_est.batch_compute(texts[:128], images.base[:128])
+
+        rows = {}
+        (means, q90s, q99s), sec, peak = timed_run(lambda: lm_est.batch_compute_stats(texts))
+        check(all(np.isfinite(a).all() and a.shape == (len(texts),) for a in (means, q90s, q99s))
+              and bool((means > 0).all() and (q99s >= q90s).all()),
+              "signals: text entropy output")
+        rows["text_entropy"] = dict(model="gpt2", docs=len(texts), long_docs=N_LONG_TEXTS,
+                                    batch_size=64, seconds=sec, docs_per_s=len(texts) / sec,
+                                    peak_mem_gb=peak, nll_mean_median=float(np.median(means)))
+        (hi_mean, hi_q90), sec, peak = timed_run(lambda: mae_est.batch_compute_stats(images))
+        check(all(np.isfinite(a).all() and a.shape == (N_SIGNAL_DOCS,) and (a > 0).all()
+                  for a in (hi_mean, hi_q90)), "signals: image entropy output")
+        rows["image_entropy"] = dict(model="vit-mae-base", docs=N_SIGNAL_DOCS, batch_size=64,
+                                     seconds=sec, docs_per_s=N_SIGNAL_DOCS / sec,
+                                     peak_mem_gb=peak, loss_mean_median=float(np.median(hi_mean)))
+        res, sec, peak = timed_run(lambda: clip_est.batch_compute(texts[:N_SIGNAL_DOCS], images))
+        sims = np.asarray([r.info_nce_score for r in res])
+        check(sims.shape == (N_SIGNAL_DOCS,) and np.isfinite(sims).all()
+              and (np.abs(sims) <= 1 + 1e-5).all(), "signals: cross-modal output")
+        rows["cross_modal"] = dict(model="clip-vit-base-patch32", docs=N_SIGNAL_DOCS,
+                                   batch_size=128, seconds=sec, docs_per_s=N_SIGNAL_DOCS / sec,
+                                   peak_mem_gb=peak)
+        for name, row in rows.items():
+            log(f"signals {name}: " + json.dumps({**row, "card": card}))
+        # One batch of each, profiled: texts of the 512-token bucket.
+        long_batch = [t for t in texts if 256 <= len(t) < 512][:64]
+        for name, fn in (
+                ("text_entropy batch 64 x 512", lambda: lm_est.batch_compute_stats(long_batch)),
+                ("image_entropy batch 64", lambda: mae_est.batch_compute_stats(images.base[:64])),
+                ("cross_modal batch 128", lambda: clip_est.batch_compute(
+                    texts[:128], images.base[:128]))):
+            log(f"signals profile {name}: " + json.dumps({**signal_profile(fn), "card": card}))
+        log("signals bf16 vs f32: " + json.dumps(
+            {**bf16_against_f32(lm_est, mae_est, clip_est, texts, images.base), "card": card}))
+        del images
+        torch.cuda.empty_cache()
+        launched = phase_text_queries(clip_est, clip_ckpt, lm_est, mae_est, card)
+    return {"scores_matrix_s8": launched}
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1076,6 +1387,8 @@ def main() -> int:
     phase_quickstart()
     phase_off_grid()
     launches = phase_bench()
+    for name, n in phase_signals(card).items():
+        launches[name] += n
 
     line = []
     for name, rec in kernels.items():

@@ -5,7 +5,9 @@ DEWI scores from the robust median/MAD scorer and go into a ``DewiIndex``
 that searches with ``(1-eta)*sim + eta*dewi + entropy_pref*mean_entropy``.
 Stage 1 of the search and the two streaming searches run in hand-written
 CUDA kernels (``dewi_tpu_torch/csrc``), built with nvcc at first use.  ``serve`` holds
-the micro-batching ``MicroBatcher`` and the HTTP ``SearchServer``.
+the micro-batching ``MicroBatcher`` and the HTTP ``SearchServer``.  ``models``
+holds the signal backbones (causal LM, ViT-MAE, CLIP) and ``signals`` the
+text-entropy, image-entropy and cross-modal estimators, in plain PyTorch.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); ``device=None`` raises when there is no CUDA device.

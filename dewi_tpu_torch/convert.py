@@ -12,12 +12,18 @@ does the same for fitted ``RobustStats``.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from torch import nn
+
 from .index.facade import DewiIndex
+from .models.clip import CLIPDualEncoder
+from .models.lm import CausalLM
+from .models.mae import ViTMAE
+from .models.transformer import Attention
 from .index.quantized import QuantizedIndex
 from .scorer import RobustStats
 from .types import SIGNAL_FIELDS
@@ -128,5 +134,118 @@ def stats_from_numpy_state(medians: Any, mads: Any,
                        keys=tuple(keys))
 
 
+# ---- Flax param trees <-> the signal models' state dicts -------------------
+
+_QKV = ("query", "key", "value")
+
+
+def _state_from_flax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        key = prefix + name
+        if not isinstance(sub, dict):  # a raw parameter (positions, CLS, ...)
+            out[key] = _param(sub)
+        elif "kernel" in sub and set(sub) <= {"kernel", "bias"}:  # Dense(General)
+            k = np.asarray(sub["kernel"])
+            if name in _QKV and k.ndim == 3:      # [d, H, hd] -> [H*hd, d]
+                w = k.reshape(k.shape[0], -1).T
+            elif k.ndim == 3:                     # out: [H, hd, d] -> [d, H*hd]
+                w = k.reshape(-1, k.shape[-1]).T
+            else:                                 # Dense: [in, out] -> [out, in]
+                w = k.T
+            out[key + ".weight"] = _param(w)
+            if "bias" in sub:
+                out[key + ".bias"] = _param(np.asarray(sub["bias"]).reshape(-1))
+        elif set(sub) == {"embedding"}:
+            out[key + ".weight"] = _param(sub["embedding"])
+        elif set(sub) == {"scale", "bias"}:
+            out[key + ".weight"] = _param(sub["scale"])
+            out[key + ".bias"] = _param(sub["bias"])
+        else:
+            out.update(_state_from_flax(sub, key + "."))
+    return out
+
+
+def _param(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _module_to_flax(module: nn.Module) -> dict:
+    tree: dict = {name: _np(p) for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, Attention):
+            h, hd = child.n_heads, child.head_dim
+            sub = {}
+            for part in _QKV:
+                lin = getattr(child, part)
+                sub[part] = {"kernel": _np(lin.weight).T.reshape(-1, h, hd),
+                             "bias": _np(lin.bias).reshape(h, hd)}
+            sub["out"] = {"kernel": _np(child.out.weight).T.reshape(h, hd, -1),
+                          "bias": _np(child.out.bias)}
+            tree[name] = sub
+        elif isinstance(child, nn.Linear):
+            tree[name] = {"kernel": np.ascontiguousarray(_np(child.weight).T)}
+            if child.bias is not None:
+                tree[name]["bias"] = _np(child.bias)
+        elif isinstance(child, nn.Embedding):
+            tree[name] = {"embedding": _np(child.weight)}
+        elif isinstance(child, nn.LayerNorm):
+            tree[name] = {"scale": _np(child.weight), "bias": _np(child.bias)}
+        else:
+            tree[name] = _module_to_flax(child)
+    return tree
+
+
+def _from_flax(tree: dict, kind: str, keys: Sequence[str]) -> Dict[str, torch.Tensor]:
+    params = tree.get("params", tree)
+    missing = [k for k in keys if k not in params]
+    if missing:
+        raise ValueError(f"not a {kind} param tree: it lacks {missing} "
+                         f"(top-level keys {sorted(params)})")
+    return _state_from_flax(params)
+
+
+def _to_flax(model: nn.Module, cls: type) -> dict:
+    if not isinstance(model, cls):
+        raise TypeError(f"expected a {cls.__name__}, got {type(model).__name__}")
+    return {"params": _module_to_flax(model)}
+
+
+def lm_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A ``CausalLM`` state dict from the reference's ``init_lm`` param tree."""
+    return _from_flax(tree, "causal LM", ("wte", "wpe", "encoder"))
+
+
+def mae_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A ``ViTMAE`` state dict from the reference's ``init_mae`` param tree."""
+    return _from_flax(tree, "ViT-MAE", ("patch_embed", "encoder", "decoder", "mask_token"))
+
+
+def clip_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A ``CLIPDualEncoder`` state dict from the reference's ``init_clip`` tree."""
+    return _from_flax(tree, "CLIP", ("text_tower", "image_tower", "logit_scale"))
+
+
+def lm_params_to_flax(model: CausalLM) -> dict:
+    """``{"params": tree}`` as the reference's ``init_lm`` lays it out."""
+    return _to_flax(model, CausalLM)
+
+
+def mae_params_to_flax(model: ViTMAE) -> dict:
+    """``{"params": tree}`` as the reference's ``init_mae`` lays it out."""
+    return _to_flax(model, ViTMAE)
+
+
+def clip_params_to_flax(model: CLIPDualEncoder) -> dict:
+    """``{"params": tree}`` as the reference's ``init_clip`` lays it out."""
+    return _to_flax(model, CLIPDualEncoder)
+
+
 __all__ = ["index_from_numpy_state", "ivf_index_from_numpy_state",
-           "stats_from_numpy_state"]
+           "stats_from_numpy_state", "lm_params_from_flax", "mae_params_from_flax",
+           "clip_params_from_flax", "lm_params_to_flax", "mae_params_to_flax",
+           "clip_params_to_flax"]

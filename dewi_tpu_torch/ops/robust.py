@@ -61,5 +61,35 @@ def quantiles(x: torch.Tensor, qs: torch.Tensor, axis: int = -1) -> torch.Tensor
     return torch.quantile(x, qs.to(device=x.device, dtype=torch.float32), dim=axis)
 
 
+def masked_mean_and_quantiles(values: torch.Tensor, mask: torch.Tensor,
+                              qs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise mean and quantiles of ``values [B, T]`` under ``mask [B, T]``.
+
+    Padding is excluded from both.  Quantiles interpolate linearly, as
+    ``np.quantile``, on the sorted valid prefix of each row: invalid entries
+    sort to the tail behind the float32-max sentinel and are never gathered
+    (``pos = q * (n - 1)`` with a floor/ceil gather).  A row with no valid
+    entries reports 0.
+    """
+    values = values.to(torch.float32)
+    mask = mask.to(torch.float32)
+    qs = qs.to(device=values.device, dtype=torch.float32)
+    raw_counts = mask.sum(dim=1)
+    counts = raw_counts.clamp_min(1.0)
+    mean = (values * mask).sum(dim=1) / counts
+    big = torch.finfo(torch.float32).max
+    sorted_vals = torch.sort(torch.where(mask > 0, values, torch.full_like(values, big)),
+                             dim=1).values
+    pos = qs[None, :] * (counts[:, None] - 1.0)  # [B, Q]
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.ceil(pos).to(torch.int64)
+    frac = pos - lo.to(torch.float32)
+    v_lo = torch.gather(sorted_vals, 1, lo)
+    v_hi = torch.gather(sorted_vals, 1, hi)
+    q_vals = v_lo + frac * (v_hi - v_lo)
+    empty = (raw_counts == 0.0)[:, None]
+    return mean, torch.where(empty, torch.zeros_like(q_vals), q_vals)
+
+
 __all__ = ["MAD_CONSISTENCY", "MAD_FLOOR", "median_mad", "robust_z",
-           "local_weights_kernel", "quantiles"]
+           "local_weights_kernel", "quantiles", "masked_mean_and_quantiles"]

@@ -17,8 +17,8 @@ Two layers, both stdlib plus torch:
 The worker thread launches a batch and records a CUDA event after it; a
 resolver thread waits on that event and copies the results to the host
 on a stream of its own, so batch k+1 computes while batch k is fetched.
-Text queries need the CLIP text tower, which the port does not have yet:
-they are refused with a 400.
+A text query is embedded by the CLIP text tower that the index's
+``encoder`` provenance names (:func:`query_encoder_for_index`).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,11 +40,54 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-TEXT_NOT_PORTED = (
-    "text queries need the CLIP text tower, which dewi_tpu_torch does not "
-    "have yet (the signal-model slice, ROADMAP.md queue 1 step 6); send a "
-    "'vector' query"
-)
+
+def query_encoder_for_index(index: Any) -> Any:
+    """The CLIP text encoder an index's embeddings came from.
+
+    Rebuilt from the ``encoder`` provenance the index recorded (model preset,
+    tokenizer, seed, checkpoint), on the index's device, so that query vectors
+    live in the corpus's space.  Raises ``ValueError`` with the reason where
+    no such encoder can be rebuilt: no provenance, external embeddings, a
+    checkpoint that is missing, or no checkpoint at all.  The last is
+    refused where ``dewi_tpu``'s CLI would answer: seeded weights are not
+    portable between the two packages (their random streams differ), so a
+    seed-only encoder here is not the one that embedded the corpus.  A
+    checkpoint whose fingerprint changed since the index was built warns.
+    """
+    from .models.registry import checkpoint_fingerprint
+    from .signals.cross_modal import CrossModalDependency
+
+    prov = getattr(index, "encoder", None)
+    if not prov:
+        raise ValueError(
+            "the index has no encoder provenance, so text queries cannot be "
+            "embedded in its space; send a 'vector' query")
+    if prov.get("source") == "external":
+        raise ValueError(
+            "the index's embeddings were supplied externally (no encoder "
+            "provenance); text queries cannot be encoded consistently; send a "
+            "'vector' query embedded by the same external model")
+    ckpt = prov.get("checkpoint")
+    if not ckpt:
+        raise ValueError(
+            "the index's encoder provenance names no checkpoint, only a seed; "
+            "seeded weights are not portable between dewi_tpu and "
+            "dewi_tpu_torch, so a text query cannot be embedded in the index's "
+            "space; build the index from a saved CLIP checkpoint, or send a "
+            "'vector' query")
+    if not Path(ckpt).exists():
+        raise ValueError(f"the index was embedded with checkpoint {ckpt!r}, which does "
+                         "not exist here; restore it, or send a 'vector' query")
+    want = prov.get("checkpoint_fingerprint")
+    have = checkpoint_fingerprint(ckpt)
+    if want and have and want != have:
+        logger.warning("checkpoint %s changed since the index was built (fingerprint %s "
+                       "!= recorded %s); query embeddings may not match the corpus",
+                       ckpt, have, want)
+    return CrossModalDependency(model_name=prov.get("model", "small"),
+                                tokenizer=prov.get("tokenizer", "byte"),
+                                seed=int(prov.get("seed", 0)), checkpoint=ckpt,
+                                device=index.device)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -332,7 +376,8 @@ class SearchServer:
       ``GET  /healthz``       {"docs", "dim", "queries", "dispatches", ...}
       ``GET  /stats_stages``  :meth:`MicroBatcher.stage_summary`
 
-    A request with ``"text"`` gets a 400 (:data:`TEXT_NOT_PORTED`).
+    A request with ``"text"`` is embedded by :meth:`encode_text`; where the
+    index's provenance names no usable encoder it gets a 400 with the reason.
     """
 
     #: Per-request result deadline; overload is handled by admission
@@ -343,6 +388,8 @@ class SearchServer:
                  window_ms: float = 2.0, max_batch: int = 256,
                  max_pending: int = 4096, resolvers: int = 2) -> None:
         self.index = index
+        self._encoder: Any = None
+        self._encoder_lock = threading.Lock()
         self.batcher = MicroBatcher(index, window_ms=window_ms, max_batch=max_batch,
                                     max_pending=max_pending, resolvers=resolvers)
         server = self
@@ -422,8 +469,12 @@ class SearchServer:
         return self._resolve(self.submit_request(req))
 
     def encode_text(self, text: str) -> np.ndarray:
-        """Text queries need the CLIP text tower, not ported yet."""
-        raise ValueError(TEXT_NOT_PORTED)
+        """A text query's embedding, by the query encoder of the index's
+        provenance (built once, under a lock)."""
+        with self._encoder_lock:
+            if self._encoder is None:
+                self._encoder = query_encoder_for_index(self.index)
+        return self._encoder.encode_texts([text])[0]
 
     def health(self) -> Dict[str, Any]:
         with self.batcher._stats_lock:
@@ -479,4 +530,5 @@ def retier_index(index: Any, backend: str) -> Any:
     return retiered
 
 
-__all__ = ["MicroBatcher", "OverloadedError", "SearchServer", "retier_index"]
+__all__ = ["MicroBatcher", "OverloadedError", "SearchServer", "query_encoder_for_index",
+           "retier_index"]

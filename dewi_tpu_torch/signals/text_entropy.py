@@ -1,0 +1,290 @@
+"""Text entropy (token surprisal) from a causal LM.
+
+Counterpart of ``dewi_tpu/signals/text_entropy.py``, with the same results
+and options: documents are grouped into power-of-two length buckets, padded
+to ``[batch_size, bucket]`` and scored in one forward + gather NLL + masked
+mean/quantiles per batch; documents longer than the model's context are
+scored over overlapping windows; domain-relative mode subtracts a second
+LM's NLL.  ``batch_compute_stats`` keeps every batch's aggregates on the
+device and copies them to the host once, at the end.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.import_hf import sidecar_config
+from ..models.lm import token_nll
+from ..models.registry import init_lm, lm_config, maybe_load
+from ..models.transformer import TransformerConfig
+from ..ops.robust import masked_mean_and_quantiles
+from ..utils.device import DeviceLike, refuse_multi_device, resolve_device
+from .tokenizer import bucket_length, get_tokenizer
+
+
+@dataclass
+class TextEntropyResult:
+    """Per-document surprisal record."""
+
+    token_entropies: List[float]
+    mean_entropy: float
+    q90_entropy: float
+    q99_entropy: float
+
+    def to_dict(self) -> Dict[str, object]:
+        """The pipeline-facing dict view."""
+        return {
+            "mean": self.mean_entropy,
+            "quantiles": {0.9: self.q90_entropy, 0.99: self.q99_entropy},
+            "token_entropies": self.token_entropies,
+        }
+
+
+def _result_from_stream(arr: np.ndarray) -> TextEntropyResult:
+    if arr.size == 0:
+        return TextEntropyResult([], 0.0, 0.0, 0.0)
+    return TextEntropyResult(
+        token_entropies=arr.tolist(),
+        mean_entropy=float(arr.mean()),
+        q90_entropy=float(np.quantile(arr, 0.9)),
+        q99_entropy=float(np.quantile(arr, 0.99)),
+    )
+
+
+class TextEntropyEstimator:
+    """LM token-NLL estimator with bucketed batch inference.
+
+    ``device=None`` runs on the card (raising without one).  ``mesh=``,
+    ``ring_mesh=`` and ``chip_len=`` belong to the multi-device slice and
+    raise ``NotImplementedError``; the context of one forward is the model's
+    ``max_len``.
+    """
+
+    def __init__(
+        self,
+        model_name: str = "small",
+        device: DeviceLike = None,
+        domain_model_name: Optional[str] = None,
+        quantiles: Sequence[float] = (0.9, 0.99),
+        batch_size: int = 64,
+        max_length: int = 512,
+        tokenizer: Any = "byte",
+        checkpoint: Optional[str] = None,
+        domain_checkpoint: Optional[str] = None,
+        seed: int = 0,
+        ring_mesh: Any = None,
+        chip_len: Optional[int] = None,
+        mesh: Any = None,
+    ) -> None:
+        refuse_multi_device(mesh=mesh, ring_mesh=ring_mesh, chip_len=chip_len)
+        self.device = resolve_device(device)
+        self.quantiles = tuple(float(q) for q in quantiles)
+        self.batch_size = int(batch_size)
+        self.tokenizer = get_tokenizer(tokenizer)
+        side = sidecar_config(checkpoint)
+        if side is not None:
+            cfg = TransformerConfig(**side["config"])
+            if cfg.vocab_size != self.tokenizer.vocab_size:
+                # A forward over the wrong tokenizer returns meaningless
+                # surprisal with no other symptom: refuse.
+                raise ValueError(
+                    f"Checkpoint {checkpoint!r} expects a "
+                    f"{cfg.vocab_size}-token vocabulary but tokenizer "
+                    f"{tokenizer!r} has {self.tokenizer.vocab_size}. "
+                    f"Configure the matching tokenizer (e.g. text.tokenizer"
+                    f": gpt2 for an imported GPT-2 checkpoint)."
+                )
+        else:
+            cfg = lm_config(model_name, vocab_size=self.tokenizer.vocab_size)
+            if max_length != cfg.max_len:
+                cfg = lm_config(model_name, vocab_size=self.tokenizer.vocab_size,
+                                max_len=int(max_length))
+        self.cfg = cfg
+        self.chip_len = cfg.max_len
+        self.model = maybe_load(init_lm(cfg, seed=seed, device=self.device), checkpoint)
+        self.domain_model = None
+        if domain_model_name or domain_checkpoint:
+            self.domain_cfg = lm_config(domain_model_name or model_name,
+                                        vocab_size=self.tokenizer.vocab_size,
+                                        max_len=cfg.max_len)
+            self.domain_model = maybe_load(
+                init_lm(self.domain_cfg, seed=seed + 1, device=self.device),
+                domain_checkpoint)
+        self._qs = torch.tensor(self.quantiles, dtype=torch.float32, device=self.device)
+
+    # -- scoring --------------------------------------------------------------
+
+    @torch.no_grad()
+    def _score(self, ids: np.ndarray, mask: np.ndarray, use_domain: bool) -> tuple:
+        """``(nll, valid, mean, qs)`` of one padded batch, on the device."""
+        ids_t = torch.from_numpy(ids).to(self.device).long()
+        mask_t = torch.from_numpy(mask).to(self.device)
+        nll, valid = token_nll(self.model(ids_t, mask_t), ids_t, mask_t)
+        if use_domain:
+            dnll, _ = token_nll(self.domain_model(ids_t, mask_t), ids_t, mask_t)
+            nll = nll - dnll
+        mean, qs = masked_mean_and_quantiles(nll, valid, self._qs)
+        return nll, valid, mean, qs
+
+    def _encode_padded(self, texts: Sequence[str], blen: int, bs: int) -> tuple:
+        """``[bs, blen]`` ids and mask; rows past ``len(texts)`` are padding
+        with an empty mask, so every batch of a bucket has one shape."""
+        ids, mask = self.tokenizer.encode_batch(list(texts), self.cfg.max_len, pad_to=blen)
+        pad_rows = bs - len(texts)
+        if pad_rows:
+            ids = np.concatenate([ids, np.full((pad_rows, blen), self.tokenizer.pad_id,
+                                               dtype=np.int32)])
+            mask = np.concatenate([mask, np.zeros((pad_rows, blen), np.float32)])
+        return ids, mask
+
+    def _token_count(self, text: str, max_len: int) -> int:
+        fast = getattr(self.tokenizer, "encode_length", None)
+        if fast is not None:
+            return fast(text, max_len)
+        return len(self.tokenizer.encode(text, max_len))
+
+    def _token_counts(self, texts: Sequence[str], max_len: int) -> Sequence[int]:
+        fast = getattr(self.tokenizer, "encode_lengths", None)
+        if fast is not None:
+            return fast(texts, max_len)
+        return [self._token_count(t, max_len) for t in texts]
+
+    def _buckets(self, texts: Sequence[str]) -> tuple:
+        """``({bucket length: doc indices}, long doc indices)``."""
+        buckets: Dict[int, List[int]] = {}
+        long_idx = []
+        for i, n in enumerate(self._token_counts(texts, self.chip_len + 1)):
+            if n > self.chip_len:
+                long_idx.append(i)
+            else:
+                buckets.setdefault(bucket_length(max(int(n), 2), max_len=self.chip_len),
+                                   []).append(i)
+        return buckets, long_idx
+
+    # -- public API -----------------------------------------------------------
+
+    def compute_entropy(self, text: str, relative_to_domain: bool = False) -> TextEntropyResult:
+        """Single-document surprisal."""
+        return self.batch_compute([text], relative_to_domain)[0]
+
+    def batch_compute(self, texts: Sequence[str], relative_to_domain: bool = False,
+                      batch_size: Optional[int] = None) -> List[TextEntropyResult]:
+        """Bucketed surprisal for N documents, with per-token lists.
+
+        Documents longer than the model's context are scored over
+        overlapping windows and their per-token streams merged.
+        """
+        if not len(texts):
+            return []
+        bs = int(batch_size or self.batch_size)
+        use_domain = relative_to_domain and self.domain_model is not None
+        buckets, long_idx = self._buckets(texts)
+        results: List[Optional[TextEntropyResult]] = [None] * len(texts)
+        for i in long_idx:
+            results[i] = self._compute_long(texts[i], relative_to_domain, bs)
+        for blen, idxs in sorted(buckets.items()):
+            for start in range(0, len(idxs), bs):
+                chunk = idxs[start:start + bs]
+                nll, valid, mean, qs = self._score(
+                    *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
+                mean, qs = mean.cpu().numpy(), qs.cpu().numpy()
+                for row, doc_i in enumerate(chunk):
+                    q = {self.quantiles[j]: float(qs[row, j]) for j in range(len(self.quantiles))}
+                    results[doc_i] = TextEntropyResult(
+                        token_entropies=nll[row][valid[row]].tolist(),
+                        mean_entropy=float(mean[row]),
+                        q90_entropy=float(q.get(0.9, qs[row, 0])),
+                        q99_entropy=float(q.get(0.99, qs[row, -1])),
+                    )
+        return results  # type: ignore[return-value]
+
+    def _compute_long(self, text: str, relative_to_domain: bool, bs: int) -> TextEntropyResult:
+        """Long-document path: overlapping fixed windows, merged token stream.
+
+        Windows of ``chip_len`` tokens advance by ``chip_len - overlap``
+        (``overlap = chip_len // 4``); after the first window, each window's
+        first ``overlap - 1`` targets are context only and dropped, so every
+        kept token has at least ``overlap - 1`` tokens of left context.
+        """
+        ids_full = self.tokenizer.encode(text, 1 << 30)
+        t = self.chip_len
+        overlap = t // 4
+        stride = t - overlap
+        windows = [ids_full[s:s + t]
+                   for s in range(0, max(len(ids_full) - overlap, 1), stride)]
+        nw = len(windows)
+        ids = np.full((nw, t), self.tokenizer.pad_id, dtype=np.int32)
+        mask = np.zeros((nw, t), dtype=np.float32)
+        for w, win in enumerate(windows):
+            ids[w, :len(win)] = win
+            mask[w, :len(win)] = 1.0
+        use_domain = relative_to_domain and self.domain_model is not None
+        toks: List[np.ndarray] = []
+        for start in range(0, nw, bs):
+            n = min(bs, nw - start)
+            chunk_ids = np.full((bs, t), self.tokenizer.pad_id, dtype=np.int32)
+            chunk_mask = np.zeros((bs, t), np.float32)
+            chunk_ids[:n] = ids[start:start + n]
+            chunk_mask[:n] = mask[start:start + n]
+            nll, valid, _, _ = self._score(chunk_ids, chunk_mask, use_domain)
+            nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
+            for row in range(n):
+                stream = nll[row][valid[row]]
+                if start + row > 0:
+                    stream = stream[overlap - 1:]  # drop context-only targets
+                toks.append(stream)
+        return _result_from_stream(np.concatenate(toks).astype(np.float32))
+
+    def batch_compute_stats(
+        self,
+        texts: Sequence[str],
+        relative_to_domain: bool = False,
+        batch_size: Optional[int] = None,
+        progress: Optional[Callable[[int], None]] = None,
+    ) -> tuple:
+        """Per-document ``(mean, q90, q99)`` float32 arrays, without per-token
+        lists.  The aggregates stay on the device until one copy at the end."""
+        z = np.zeros(len(texts), np.float32)
+        means, q90s, q99s = z, z.copy(), z.copy()
+        if not len(texts):
+            return means, q90s, q99s
+        bs = int(batch_size or self.batch_size)
+        use_domain = relative_to_domain and self.domain_model is not None
+        buckets, long_idx = self._buckets(texts)
+        for i in long_idx:
+            r = self._compute_long(texts[i], relative_to_domain, bs)
+            means[i], q90s[i], q99s[i] = r.mean_entropy, r.q90_entropy, r.q99_entropy
+            if progress is not None:
+                progress(1)
+        q90_col = self.quantiles.index(0.9) if 0.9 in self.quantiles else 0
+        rows: List[int] = []
+        dev_means: List[torch.Tensor] = []
+        dev_qs: List[torch.Tensor] = []
+        for blen, idxs in sorted(buckets.items()):
+            for start in range(0, len(idxs), bs):
+                chunk = idxs[start:start + bs]
+                _, _, mean, qs = self._score(
+                    *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                rows.extend(chunk)
+                dev_means.append(mean[:len(chunk)])
+                dev_qs.append(qs[:len(chunk)])
+                if progress is not None:
+                    progress(len(chunk))
+        if rows:
+            idx = np.asarray(rows)
+            means[idx] = torch.cat(dev_means).cpu().numpy()
+            qs_h = torch.cat(dev_qs).cpu().numpy()
+            q90s[idx] = qs_h[:, q90_col]
+            q99s[idx] = qs_h[:, -1]
+        return means, q90s, q99s
+
+    def __call__(self, text: str, **kwargs: Any) -> TextEntropyResult:
+        return self.compute_entropy(text, **kwargs)
+
+
+__all__ = ["TextEntropyEstimator", "TextEntropyResult"]

@@ -28,4 +28,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["DeviceLike", "resolve_device"]
+def refuse_multi_device(**args: object) -> None:
+    """Raise for the multi-device arguments (``mesh=``, ``ring_mesh=``,
+    ``chip_len=``) that a caller set: they come with the multi-device slice."""
+    given = sorted(name for name, value in args.items() if value is not None)
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: the multi-device execution of the signal "
+            "estimators is not ported yet (ROADMAP.md queue 1 step 12)"
+        )
+
+
+__all__ = ["DeviceLike", "resolve_device", "refuse_multi_device"]

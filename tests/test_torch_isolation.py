@@ -35,6 +35,11 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, dewi_tpu_torch, dewi_tpu_torch.convert; "
             "import dewi_tpu_torch.ops.cuda_search, dewi_tpu_torch.ops._build; "
             "import dewi_tpu_torch.ops.kmeans, dewi_tpu_torch.index.ivf; "
+            "import dewi_tpu_torch.models, dewi_tpu_torch.models.registry; "
+            "import dewi_tpu_torch.models.import_hf, dewi_tpu_torch.utils.msgpack; "
+            "import dewi_tpu_torch.signals, dewi_tpu_torch.signals.text_entropy; "
+            "import dewi_tpu_torch.signals.image_entropy, dewi_tpu_torch.signals.cross_modal; "
+            "import dewi_tpu_torch.io, dewi_tpu_torch.io.device_images; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -55,6 +60,12 @@ def test_new_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"dewi_tpu_torch/ops/kmeans.py", "dewi_tpu_torch/index/ivf.py",
             "scripts/torch_stream_chunks.py", "scripts/torch_stage1_sweep.py"} <= names
+    signal_slice = {f"dewi_tpu_torch/{m}.py" for m in (
+        "models/transformer", "models/lm", "models/mae", "models/clip", "models/registry",
+        "models/import_hf", "convert", "signals/tokenizer", "ops/robust",
+        "signals/text_entropy", "io/images", "io/device_images", "signals/image_entropy",
+        "signals/cross_modal", "serve", "utils/msgpack")}
+    assert signal_slice <= names
 
 
 def test_ivf_defaults_to_the_card():

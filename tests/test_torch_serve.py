@@ -4,8 +4,10 @@ The cases of ``tests/test_serve.py``, run on a port index with
 ``device="cpu"``: batching semantics, HTTP endpoints, answers equal to
 direct search, error isolation, shutdown, stage instrumentation.  Besides:
 the JAX package's ``MicroBatcher`` and the port's answer the same requests
-over the same corpus, a text query gets a 400 (the CLIP tower is not
-ported), and the int8-query tier is served through its fused route.
+over the same corpus; a text query is embedded by the CLIP text tower of
+the checkpoint that the index's provenance names and equals
+``encode_texts`` + ``search_batch``, and without a usable provenance gets a
+400 that says why; the int8-query tier is served through its fused route.
 """
 
 import json
@@ -18,8 +20,8 @@ import numpy as np
 import pytest
 
 from dewi_tpu_torch import DewiIndex, Payload
-from dewi_tpu_torch.serve import (TEXT_NOT_PORTED, MicroBatcher, OverloadedError,
-                                  SearchServer, _bucket, retier_index)
+from dewi_tpu_torch.serve import (MicroBatcher, OverloadedError, SearchServer, _bucket,
+                                  query_encoder_for_index, retier_index)
 
 N, DIM = 200, 16
 
@@ -208,15 +210,6 @@ class TestSearchServer:
         out = _post(server.port, "/search", {"vector": [1.0] * DIM, "k": 2})
         assert len(out["ids"]) == 2
 
-    def test_text_query_is_a_client_error(self, server):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(server.port, "/search", {"text": "a red bicycle", "k": 3})
-        assert e.value.code == 400
-        assert "CLIP" in json.loads(e.value.read())["error"]
-        with pytest.raises(ValueError, match="CLIP"):
-            server.encode_text("x")
-        assert "not have yet" in TEXT_NOT_PORTED
-
     def test_concurrent_http_load(self, server, index):
         qs = np.random.default_rng(5).normal(size=(24, DIM)).astype(np.float32)
         results = [None] * len(qs)
@@ -231,6 +224,90 @@ class TestSearchServer:
             t.join(timeout=60)
             assert not t.is_alive()
         assert [r["ids"] for r in results] == _direct_ids(index, qs, 3)
+
+
+@pytest.fixture(scope="module")
+def text_index(tmp_path_factory):
+    """An index of 60 CLIP-embedded docs whose provenance names the saved
+    checkpoint of a seeded tiny CLIP, and that checkpoint's encoder."""
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.signals import CrossModalDependency
+
+    ckpt = str(tmp_path_factory.mktemp("clip") / "clip.msgpack")
+    registry.save_params(registry.init_clip(registry.clip_config("tiny"), seed=4,
+                                            device="cpu"), ckpt)
+    enc = CrossModalDependency("tiny", device="cpu", checkpoint=ckpt, batch_size=16)
+    texts = [f"document {i} about {w}" for i, w in
+             enumerate(["cats", "boats", "maps", "rain", "glass", "tea"] * 10)]
+    rng = np.random.default_rng(6)
+    idx = DewiIndex(dim=enc.cfg.d_embed, backend="exact", device="cpu")
+    idx.add_batch([f"t{i}" for i in range(len(texts))], enc.encode_texts(texts),
+                  rng.gamma(2.0, size=(len(texts), 8)).astype(np.float32))
+    idx.build()
+    idx.encoder = {"model": "tiny", "tokenizer": "byte", "seed": 0, "checkpoint": ckpt,
+                   "checkpoint_fingerprint": registry.checkpoint_fingerprint(ckpt),
+                   "d_embed": enc.cfg.d_embed}
+    return idx, enc
+
+
+class TestTextQueries:
+    def test_text_query_equals_encode_and_search(self, text_index):
+        idx, enc = text_index
+        queries = ["a boat on the sea", "rain over glass", "document 7", ""]
+        srv = SearchServer(idx, port=0, window_ms=5.0)
+        srv.start()
+        try:
+            out = [_post(srv.port, "/search", {"text": q, "k": 5, "eta": 0.2})
+                   for q in queries]
+            batch = _post(srv.port, "/search_batch",
+                          {"queries": [{"text": q, "k": 5, "eta": 0.2} for q in queries]})
+        finally:
+            srv.shutdown()
+        s, rows = idx.search_batch(enc.encode_texts(queries), k=5, eta=0.2)
+        for r, rb, want_rows, want_s in zip(out, batch["results"], rows.numpy(), s.numpy()):
+            assert r["ids"] == rb["ids"] == [idx.doc_ids[j] for j in want_rows]
+            np.testing.assert_allclose(r["scores"], want_s, rtol=1e-6)
+        assert srv._encoder is not None and srv._encoder.device.type == "cpu"
+
+    @pytest.mark.parametrize("case,reason", [
+        ("none", "no encoder provenance"),
+        ("external", "supplied externally"),
+        ("seed_only", "not portable"),
+        ("missing_checkpoint", "does not exist here"),
+    ])
+    def test_text_query_refused_with_the_reason(self, text_index, case, reason):
+        idx, _ = text_index
+        prov = {"none": None, "external": {"source": "external"},
+                "seed_only": {"model": "tiny", "tokenizer": "byte", "seed": 0,
+                              "checkpoint": None},
+                "missing_checkpoint": dict(idx.encoder, checkpoint="/nonexistent/clip.msgpack"),
+                }[case]
+        saved = idx.encoder
+        idx.encoder = prov
+        srv = SearchServer(idx, port=0, window_ms=5.0)
+        srv.start()
+        try:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(srv.port, "/search", {"text": "a red bicycle", "k": 3})
+            assert e.value.code == 400
+            assert reason in json.loads(e.value.read())["error"]
+            with pytest.raises(ValueError, match=reason):
+                srv.encode_text("x")
+            # Vector queries are still served.
+            out = _post(srv.port, "/search", {"vector": [0.1] * idx.dim, "k": 2})
+            assert len(out["ids"]) == 2
+        finally:
+            srv.shutdown()
+            idx.encoder = saved
+
+    def test_changed_checkpoint_warns(self, text_index, caplog):
+        idx, _ = text_index
+        prov = dict(idx.encoder, checkpoint_fingerprint="0" * 16)
+        probe = type("Probe", (), {"encoder": prov, "device": idx.device})()
+        with caplog.at_level("WARNING", logger="dewi_tpu_torch.serve"):
+            enc = query_encoder_for_index(probe)
+        assert "changed since the index was built" in caplog.text
+        assert enc.cfg.d_embed == idx.dim
 
 
 class TestServeRetier:
