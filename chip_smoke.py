@@ -66,7 +66,20 @@ public entry points:
    int8_queries=True)`` whose provenance names the saved CLIP checkpoint,
    and 64 text queries through ``SearchServer``, each equal to
    ``encode_texts`` + ``search_batch``, with ``scores_matrix_s8`` launched;
-9. one JSON line with every kernel's launches, error and times.
+9. the corpus pipeline at the same widths (``DewiPipeline``, the CLIP
+   towers from a saved checkpoint): ``process_corpus`` on 16,384 docs
+   (texts of 1-500 bytes, 8,192 with a 224-px uint8 image from one dense
+   array, 256 planted duplicate pairs) with per-stage seconds, every
+   planted doc's redundancy >= 0.99 and the median of the rest below;
+   ``build_index_corpus`` into an int8-query index and 64 ``encode_query``
+   + ``search`` calls, each equal to ``search_batch``, with ``bmax_s8`` or
+   ``scores_matrix_s8`` launched; the first 1,024 docs through the object
+   path against the columnar path; ``max_offdiag_similarity`` and
+   ``topk_density`` on 262,144 x 512 (TFLOP/s, 512 rows held against
+   float64); ``batched_image_noise`` on the 8,192 images on the card
+   against the CPU on 256 (``scripts/torch_process_corpus.py`` holds the
+   corpus and scan helpers);
+10. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -1068,18 +1081,11 @@ N_TEXT_QUERIES = 64
 # CLIP embeddings at cosine >= 0.999 (the bounds the CPU tests hold the
 # port's bfloat16 to against the reference's).
 BF16_RTOL, BF16_COS = 3e-2, 0.999
-_WORDS = ("entropy", "signal", "image", "caption", "corpus", "index", "query", "token",
-          "a", "the", "of", "and", "with", "over", "under", "river", "mountain", "city",
-          "night", "blue", "red", "quiet", "loud", "graph", "kernel", "tensor", "photo",
-          "dog", "cat", "bicycle", "market", "ocean", "forest", "winter", "summer")
-
-
 def synthetic_texts(n: int, seed: int, lo: int = 1, hi: int = 500) -> list:
     """``n`` texts of random words, byte lengths uniform in ``[lo, hi]``."""
-    rng = np.random.default_rng(seed)
-    words = rng.choice(_WORDS, size=(n, hi // 2 + 1))
-    lens = rng.integers(lo, hi + 1, n)
-    return [" ".join(w)[:m] for w, m in zip(words, lens)]
+    from torch_process_corpus import synthetic_texts as texts
+
+    return texts(n, seed, lo, hi)
 
 
 def rel_dev(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1355,6 +1361,205 @@ def phase_signals(card: str) -> dict:
     return {"scores_matrix_s8": launched}
 
 
+# ---- phase 9: the corpus pipeline ---------------------------------------------
+
+N_PIPE_DOCS = 16_384        # 9a: docs through process_corpus
+N_PIPE_IMAGES = 8_192       # of them with a 224-px image (one dense 1.23 GB array)
+N_PIPE_DUPS = 256           # planted pairs: same text, same image
+N_PIPE_QUERIES = 64         # 9b: encode_query + search
+N_OBJECT_DOCS = 1_024       # 9b: the object path on the first docs
+N_SCAN = 262_144            # 9c: unit vectors through the redundancy scans
+N_NOISE_CHECK = 256         # 9d: images held against the CPU
+PIPE_KERNELS = ("bmax_s8", "scores_matrix_s8")
+# The object path against the columnar one: the bfloat16 models see other
+# batch shapes (the cross-modal stage encodes only the pairs' texts), so
+# per-doc columns agree to bfloat16 rounding; 1e-2 of max(|value|, 1), the
+# bound the CPU tests hold the port's bfloat16 to against the reference.
+PIPE_RTOL = 1e-2
+BLUR_RTOL = 1e-5            # 9d: card against CPU, relative
+GATE_EPS = 1e-5             # 9d: a skin-gate input this close to a threshold may flip
+
+
+def col_dev(got: np.ndarray, want: np.ndarray) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def near_skin_gate(imgs: np.ndarray, size: int = 64) -> np.ndarray:
+    """Per image, the pixels whose skin-gate inputs lie within GATE_EPS of a
+    threshold, in float64 with the resize weights of the noise pass."""
+    from dewi_tpu_torch.io.device_images import _resize_matrix
+
+    x = imgs.astype(np.float64) / 255.0
+    my = _resize_matrix(x.shape[1], size).astype(np.float64)
+    mx = _resize_matrix(x.shape[2], size).astype(np.float64)
+    x = np.einsum("sw,bowc->bosc", mx, np.einsum("oh,bhwc->bowc", my, x))
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    near = np.zeros(y.shape, bool)
+    for v, ts in ((0.564 * (b - y) + 0.5, (0.30, 0.50)), (0.713 * (r - y) + 0.5, (0.52, 0.68)),
+                  (y, (0.15,))):
+        for t in ts:
+            near |= np.abs(v - t) <= GATE_EPS
+    return near.sum(axis=(1, 2))
+
+
+def pipeline_index_leg(pipe, corpus, clip_ckpt: str, card: str) -> dict:
+    """9b: ``build_index_corpus`` and 64 ``encode_query`` + ``search`` calls,
+    each equal to ``search_batch`` on the same embeddings; returns the
+    stage-1 kernels' launches."""
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    cs.reset_launch_counts()
+    t = time.perf_counter()
+    index = pipe.build_index_corpus(corpus)
+    sync()
+    build_s = time.perf_counter() - t
+    queries = synthetic_texts(N_PIPE_QUERIES, SIGNAL_SEED + 12, lo=3, hi=120)
+    t = time.perf_counter()
+    embs, answers = [], []
+    for q in queries:
+        e = pipe.encode_query(q)
+        embs.append(e)
+        answers.append(index.search(e, k=K))
+    query_s = time.perf_counter() - t
+    launched = {name: cs.launch_counts[name] for name in PIPE_KERNELS}
+    check(sum(launched.values()) > 0, f"pipeline: the index launched none of {PIPE_KERNELS}")
+    check(index.encoder["source"] == "cross_modal" and index.encoder["checkpoint"] == clip_ckpt,
+          f"pipeline: index provenance {index.encoder}")
+    s, rows = index.search_batch(np.stack(embs), k=K)
+    s, rows = s.cpu().numpy(), rows.cpu().numpy()
+    max_diff = 0.0
+    for i, a in enumerate(answers):
+        check([doc for doc, _, _ in a] == [index.doc_ids[r] for r in rows[i]],
+              f"pipeline: query {i} differs from search_batch")
+        max_diff = max(max_diff, float(np.abs(np.array([sc for _, sc, _ in a]) - s[i]).max()))
+    check(max_diff <= 1e-6, f"pipeline: search scores differ from search_batch by {max_diff}")
+    log("pipeline index: " + json.dumps({
+        "docs": len(index), "capacity": index._backend.store.capacity,
+        "backend": type(index._backend).__name__, "build_s": build_s,
+        "queries": N_PIPE_QUERIES, "query_ms": query_s / N_PIPE_QUERIES * 1e3,
+        "launches": launched, "answers_equal_search_batch": True,
+        "scores_max_abs_diff": max_diff, "card": card}))
+    return launched
+
+
+def pipeline_object_leg(pipe, corpus, card: str) -> None:
+    """9b: the first docs through the object path (``compute_signals`` ->
+    ``compute_dewi_scores`` -> ``build_index``) against the columnar path on
+    the same docs, and against their rows of the full run."""
+    from dewi_tpu_torch import Corpus, Document
+    from dewi_tpu_torch.types import SIGNAL_FIELDS
+
+    n = N_OBJECT_DOCS
+    sources = [corpus.images[i] for i in range(n)]
+    docs = [Document(doc_id=corpus.ids[i], text=corpus.texts[i], image=sources[i])
+            for i in range(n)]
+    t = time.perf_counter()
+    pipe.compute_dewi_scores(pipe.compute_signals(docs))
+    index = pipe.build_index(docs)
+    sync()
+    object_s = time.perf_counter() - t
+    sub = pipe.process_corpus(Corpus(ids=corpus.ids[:n], texts=corpus.texts[:n],
+                                     images=sources))
+    obj = np.array([[float(getattr(d, k) or 0.0) for k in SIGNAL_FIELDS] for d in docs])
+    obj_emb = np.stack([d.embedding for d in docs])
+    same = {k: col_dev(obj[:, j], sub.signals[:, j]) for j, k in enumerate(SIGNAL_FIELDS)}
+    same["dewi"] = col_dev([d.dewi_score for d in docs], sub.dewi)
+    same["embeddings"] = col_dev(obj_emb, sub.embeddings)
+    # Redundancy and DEWI depend on the whole corpus; the rest is per doc.
+    per_doc = [k for k in SIGNAL_FIELDS if k != "redundancy"]
+    full = {k: col_dev(obj[:, SIGNAL_FIELDS.index(k)], corpus.col(k)[:n]) for k in per_doc}
+    full["embeddings"] = col_dev(obj_emb, corpus.embeddings[:n])
+    log("pipeline object path: " + json.dumps({
+        "docs": n, "seconds": object_s, "index_docs": len(index), "rtol": PIPE_RTOL,
+        "max_dev_vs_columnar_same_docs": same, "max_dev_vs_full_run_rows": full,
+        "card": card}))
+    worst = max(max(same.values()), max(full.values()))
+    check(worst <= PIPE_RTOL, f"pipeline: object path off the columnar path by {worst}")
+    check(index.encoder["source"] == "cross_modal", "pipeline: object-path provenance")
+
+
+def pipeline_noise_leg(dense: np.ndarray, card: str) -> None:
+    """9d: ``batched_image_noise`` on the corpus's images, uploaded in the
+    background to the card, against the same function on the CPU."""
+    from dewi_tpu_torch.io import device_images_or_none
+    from dewi_tpu_torch.ops.image_noise import batched_image_noise
+
+    t = time.perf_counter()
+    di = device_images_or_none(dense, non_blocking=True)
+    check(di is not None, "pipeline: the image corpus did not go to the card")
+    base = di.base
+    sync()
+    upload_s = time.perf_counter() - t
+    check(torch.equal(base[:4].cpu(), torch.from_numpy(dense[:4])), "pipeline: upload bytes")
+    batched_image_noise(base[:64])  # warm-up
+    sync()
+    t = time.perf_counter()
+    blur, skin = batched_image_noise(base)
+    noise_s = time.perf_counter() - t
+    want_blur, want_skin = batched_image_noise(dense[:N_NOISE_CHECK], device="cpu")
+    blur_dev = float(np.abs(blur[:N_NOISE_CHECK] - want_blur).max() / np.abs(want_blur).max())
+    near = near_skin_gate(dense[:N_NOISE_CHECK])
+    skin_diff = np.abs(skin[:N_NOISE_CHECK] - want_skin)
+    log("pipeline image noise: " + json.dumps({
+        "images": len(dense), "upload_s": upload_s, "ms": noise_s * 1e3,
+        "images_per_s": len(dense) / noise_s, "checked": N_NOISE_CHECK,
+        "blur_max_rel_dev": blur_dev, "skin_max_abs_diff": float(skin_diff.max()),
+        "pixels_at_a_skin_gate": int(near.sum()), "card": card}))
+    check(np.isfinite(blur).all() and np.isfinite(skin).all(), "pipeline: noise finite")
+    check(blur_dev <= BLUR_RTOL, f"pipeline: blur off the CPU by {blur_dev}")
+    check(bool((skin_diff <= 1e-5 * want_skin + near / 64**2).all()),
+          "pipeline: skin fraction off the CPU beyond its gate pixels")
+
+
+def phase_pipeline(card: str) -> dict:
+    """Phase 9: the corpus pipeline at the reference's default widths;
+    returns the launches of the stage-1 kernels in its index leg."""
+    import torch_process_corpus as tpc
+
+    from dewi_tpu_torch import DewiConfig, DewiPipeline
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        clip_ckpt = tpc.save_clip(Path(tmp) / "clip.msgpack", SIGNAL_SEED)
+        cfg = DewiConfig.from_dict(tpc.pipeline_config(
+            clip_ckpt, index={"ann": "int8", "int8_queries": True,
+                              "rerank_eta": ETA, "entropy_pref": EP}))
+        t = time.perf_counter()
+        corpus, planted, dense = tpc.make_corpus(N_PIPE_DOCS, N_PIPE_IMAGES, N_PIPE_DUPS,
+                                                 SIGNAL_SEED + 10)
+        setup_s = time.perf_counter() - t
+        t = time.perf_counter()
+        pipe = DewiPipeline(cfg)
+        warm, _, _ = tpc.make_corpus(256, 128, 4, SIGNAL_SEED + 11)
+        pipe.process_corpus(warm)  # builds the estimators; allocator and cuBLAS warm-up
+        warm_s = time.perf_counter() - t
+        row = tpc.process_run(pipe, corpus)
+        red = corpus.col("redundancy")
+        rest = np.setdiff1d(np.arange(N_PIPE_DOCS), planted)
+        row.update(setup_s=setup_s, warm_up_s=warm_s, planted=len(planted),
+                   planted_min_redundancy=float(red[planted].min()),
+                   rest_median_redundancy=float(np.median(red[rest])),
+                   rest_max_redundancy=float(red[rest].max()))
+        log("pipeline process_corpus: " + json.dumps({**row, "card": card}))
+        check(bool(np.isfinite(corpus.signals).all() and np.isfinite(corpus.dewi).all()),
+              "pipeline: a signal column or dewi is not finite")
+        check(row["planted_min_redundancy"] >= 0.99,
+              f"pipeline: a planted duplicate reads {row['planted_min_redundancy']}")
+        check(row["rest_median_redundancy"] < 0.99,
+              f"pipeline: the median redundancy reads {row['rest_median_redundancy']}")
+        prof = tpc.profile_run(pipe, 2048, 1024, SIGNAL_SEED + 13)
+        log("pipeline process_corpus profile: " + json.dumps({**prof, "card": card}))
+        launched = pipeline_index_leg(pipe, corpus, clip_ckpt, card)
+        pipeline_object_leg(pipe, corpus, card)
+    scan = tpc.redundancy_run(N_SCAN, 512, seed=0)
+    log("pipeline redundancy scan: " + json.dumps({**scan, "card": card}))
+    check(scan["ok"], f"pipeline: redundancy scan {scan['max_abs_err']}, "
+                      f"planted {scan['planted_min']}")
+    pipeline_noise_leg(dense, card)
+    return launched
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1371,6 +1576,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import dewi_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from dewi_tpu_torch.ops import _build
 
@@ -1388,6 +1594,8 @@ def main() -> int:
     phase_off_grid()
     launches = phase_bench()
     for name, n in phase_signals(card).items():
+        launches[name] += n
+    for name, n in phase_pipeline(card).items():
         launches[name] += n
 
     line = []

@@ -7,7 +7,10 @@ Stage 1 of the search and the two streaming searches run in hand-written
 CUDA kernels (``dewi_tpu_torch/csrc``), built with nvcc at first use.  ``serve`` holds
 the micro-batching ``MicroBatcher`` and the HTTP ``SearchServer``.  ``models``
 holds the signal backbones (causal LM, ViT-MAE, CLIP) and ``signals`` the
-text-entropy, image-entropy and cross-modal estimators, in plain PyTorch.
+text-entropy, image-entropy, cross-modal, redundancy and noise estimators,
+in plain PyTorch.  ``DewiPipeline`` scores a ``Corpus`` (or ``Document``
+list) end to end and hands it to a ``DewiIndex``; ``sampling`` draws
+training subsets by DEWI score.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); ``device=None`` raises when there is no CUDA device.
@@ -21,9 +24,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .config import DewiConfig, get_default_config  # noqa: E402
 from .convert import (index_from_numpy_state, ivf_index_from_numpy_state,  # noqa: E402
                       stats_from_numpy_state)
+from .corpus import Corpus  # noqa: E402
 from .index import DewiIndex, ExactIndex, IndexBackend, IVFIndex, QuantizedIndex  # noqa: E402
+from .pipelines import DewiPipeline, Document, create_document  # noqa: E402
 from .scorer import DewiScorer, RobustStats, local_weights_from_surprisal  # noqa: E402
 from .serve import MicroBatcher, OverloadedError, SearchServer, retier_index  # noqa: E402
 from .types import Payload, Signals, Weights  # noqa: E402
@@ -31,7 +37,8 @@ from .types import Payload, Signals, Weights  # noqa: E402
 __version__ = "0.1.0"
 
 __all__ = [
-    "DewiIndex", "DewiScorer", "ExactIndex", "IVFIndex", "IndexBackend", "MicroBatcher",
+    "Corpus", "DewiConfig", "DewiPipeline", "Document", "create_document",
+    "get_default_config", "DewiIndex", "DewiScorer", "ExactIndex", "IVFIndex", "IndexBackend", "MicroBatcher",
     "OverloadedError", "Payload", "QuantizedIndex", "RobustStats",
     "SearchServer", "Signals", "Weights", "index_from_numpy_state",
     "ivf_index_from_numpy_state",

@@ -4,18 +4,33 @@ Counterpart of ``dewi_tpu/io/device_images.py``.  A uniform-size uint8
 corpus lives on the card as one ``[N, H, W, 3]`` tensor; the estimators'
 batch iterators slice it there and, when a stage wants another resolution,
 resize on the device with the half-pixel bilinear weights of
-``io.images.resize_f32`` (two small matmuls).
+``io.images.resize_f32`` (two small matmuls).  The upload is gated on a
+byte budget (``DEWI_DEVICE_IMAGES_MAX_BYTES``, default 4 GiB, the same
+variable as the reference's), so that a large corpus does not take the
+index's device memory; over the budget, or not uint8, the corpus stays on
+the host.
+
+``non_blocking=True`` starts the upload on a side stream from a thread of
+its own and returns at once; the first read of :attr:`DeviceImages.base`
+waits for it.  The pipeline starts it before the text stage, so the copy
+runs behind the language model, as the reference's asynchronous
+``device_put`` does.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 from functools import lru_cache
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
+
+#: Upload gate: corpora above this many bytes stay on the host.
+MAX_BYTES = int(os.environ.get("DEWI_DEVICE_IMAGES_MAX_BYTES", 4 << 30))
 
 
 @lru_cache(maxsize=32)
@@ -47,24 +62,71 @@ def resize_batch(chunk: torch.Tensor, size: int) -> torch.Tensor:
     return torch.einsum("bowc,sw->bosc", x, mx)
 
 
+class _Upload:
+    """A host tensor copied to a CUDA device by a thread of its own, on a
+    side stream; :meth:`result` joins it, raises what it raised, and orders
+    the caller's stream after the copy."""
+
+    def __init__(self, host: torch.Tensor, device: torch.device) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.out: Optional[torch.Tensor] = None
+        self.error: Optional[BaseException] = None
+        self.thread = threading.Thread(target=self._run, args=(host,), daemon=True)
+        self.thread.start()
+
+    def _run(self, host: torch.Tensor) -> None:
+        try:
+            with torch.cuda.stream(self.stream):
+                self.out = host.to(self.device)
+            self.stream.synchronize()
+        except BaseException as e:  # raised again by result()
+            self.error = e
+
+    def result(self) -> torch.Tensor:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(self.stream)
+        self.out.record_stream(current)
+        return self.out
+
+
 class DeviceImages:
     """A ``[N, H, W, 3]`` uint8 image corpus resident on one device.
 
     A tensor stays on its device; an ndarray goes to ``device`` (``None``:
-    the card).  ``rows_at(lo, hi, size)`` is a slice when ``size`` is the
-    stored resolution, else an on-device bilinear resize to float32 in
-    [0, 1] (the estimators' ``normalize_images`` passes floats through).
+    the card), in the background when ``non_blocking`` and the device is a
+    card.  ``rows_at(lo, hi, size)`` is a slice when ``size`` is the stored
+    resolution, else an on-device bilinear resize to float32 in [0, 1] (the
+    estimators' ``normalize_images`` passes floats through).
     """
 
-    def __init__(self, images: Any, device: DeviceLike = None) -> None:
+    def __init__(self, images: Any, device: DeviceLike = None,
+                 non_blocking: bool = False) -> None:
         self.shape = tuple(images.shape)
         if len(self.shape) != 4 or self.shape[-1] != 3:
             raise ValueError(f"expected [N, H, W, 3], got {self.shape}")
+        self._upload: Optional[_Upload] = None
         if isinstance(images, torch.Tensor):
-            self.base = images
+            self._base = images
+            return
+        host = torch.from_numpy(np.ascontiguousarray(images))
+        dev = resolve_device(device)
+        if non_blocking and dev.type == "cuda":
+            self._base = None
+            self._upload = _Upload(host, dev)
         else:
-            self.base = torch.from_numpy(np.ascontiguousarray(images)).to(
-                resolve_device(device))
+            self._base = host.to(dev)
+
+    @property
+    def base(self) -> torch.Tensor:
+        """The ``[N, H, W, 3]`` tensor (waits for a background upload)."""
+        if self._base is None:
+            self._base = self._upload.result()
+            self._upload = None
+        return self._base
 
     @property
     def size(self) -> int:
@@ -72,7 +134,7 @@ class DeviceImages:
 
     @property
     def device(self) -> torch.device:
-        return self.base.device
+        return self._upload.device if self._upload is not None else self._base.device
 
     def __len__(self) -> int:
         return self.shape[0]
@@ -88,4 +150,19 @@ class DeviceImages:
         return resize_batch(chunk, size)
 
 
-__all__ = ["DeviceImages", "resize_batch"]
+def device_images_or_none(images: Any, device: DeviceLike = None,
+                          non_blocking: bool = False) -> Optional[DeviceImages]:
+    """A uniform uint8 ``[N, H, W, 3]`` ndarray corpus as :class:`DeviceImages`
+    on ``device``, or ``None`` (the caller keeps the host path) when it is
+    not such an array or is over :data:`MAX_BYTES`.  An upload that fails
+    raises: the corpus does not move back to the host behind the caller."""
+    if not (isinstance(images, np.ndarray) and images.ndim == 4
+            and images.dtype == np.uint8 and images.shape[-1] == 3
+            and images.shape[0] > 0):
+        return None
+    if images.nbytes > MAX_BYTES:
+        return None
+    return DeviceImages(images, device=device, non_blocking=non_blocking)
+
+
+__all__ = ["DeviceImages", "MAX_BYTES", "device_images_or_none", "resize_batch"]

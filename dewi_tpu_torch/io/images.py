@@ -1,16 +1,28 @@
-"""Host-side image input: decode, resize and padded uint8 batches.
+"""Host-side image input: threaded decode, prefetched padded uint8 batches.
 
-Part of ``dewi_tpu/io/images.py``: ``resize_f32``, ``resize_uint8`` and
-``decode_image_uint8`` are copies (numpy, PIL optional), and
-``iter_corpus_batches`` slices ndarray, tensor and :class:`DeviceImages`
-corpora as the reference does.  Other sources (paths, PIL images, lists of
-arrays) are decoded one after another on the calling thread; the reference's
-threaded prefetch and its native JPEG pool come with a later slice.
+The port's copy of ``dewi_tpu/io/images.py`` (numpy, PIL optional):
+
+* :func:`decode_image_uint8` — one decode (JPEG paths in PIL's draft mode)
+  and a bilinear resize to the target square, as uint8;
+* :func:`decode_batch` — ordered decode on a thread pool;
+* :func:`iter_padded_batches` — a bounded-queue prefetcher: a producer
+  thread decodes the next batches while the caller's device step runs;
+* :class:`ImageCache` — decode once at a base size, serve smaller sizes;
+* :func:`iter_corpus_batches` — slices ndarray, tensor and
+  :class:`DeviceImages` corpora and prefetches everything else.
+
+The reference routes JPEG paths through its native GIL-free decode pool
+(``native/dewi_jpeg.cpp``) first; the port decodes every source with PIL
+until it builds that library itself.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence, Tuple, Union
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,6 +115,148 @@ def decode_image_uint8(src: ImageLike, size: int) -> np.ndarray:
     return _array_to_uint8(src, size)
 
 
+def effective_threads(threads: int, sources: Sequence[ImageLike]) -> int:
+    """Clamp the decode pool to what can help: one thread on a one-core
+    host (PIL holds the GIL for much of its decode) and for array sources
+    (a resize is cheaper than a pool dispatch); else at most the cores."""
+    ncpu = os.cpu_count() or 1
+    if ncpu <= 1:
+        return 1
+    if sources and all(isinstance(s, np.ndarray) for s in sources):
+        return 1
+    return max(1, min(int(threads), ncpu))
+
+
+def decode_batch(sources: Sequence[ImageLike], size: int, threads: int = 4,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Ordered parallel decode of ``sources`` into ``[N, size, size, 3]`` uint8
+    (into ``out`` when given)."""
+    n = len(sources)
+    if out is None:
+        out = np.empty((n, size, size, 3), np.uint8)
+    threads = effective_threads(threads, sources)
+
+    def work(i: int) -> None:
+        out[i] = decode_image_uint8(sources[i], size)
+
+    if n <= 1 or threads <= 1:
+        for i in range(n):
+            work(i)
+        return out
+    with ThreadPoolExecutor(max_workers=min(threads, n)) as pool:
+        list(pool.map(work, range(n)))
+    return out
+
+
+def iter_padded_batches(sources: Sequence[ImageLike], size: int, batch_size: int,
+                        threads: int = 4, depth: int = 2
+                        ) -> Iterator[Tuple[np.ndarray, int]]:
+    """Yield ``(batch [batch_size, size, size, 3] uint8, pad)`` in order.
+
+    The last batch is zero-padded to ``batch_size`` (``pad`` rows).  Up to
+    ``depth`` batches are decoded ahead by a producer thread, so host decode
+    overlaps the caller's device work; a decode error is raised on the
+    consuming thread at the failing batch.
+    """
+    n = len(sources)
+    if n == 0:
+        return
+    threads = effective_threads(threads, sources)
+    starts = list(range(0, n, batch_size))
+
+    def decode_at(s: int) -> Tuple[np.ndarray, int]:
+        batch = np.zeros((batch_size, size, size, 3), np.uint8)
+        # Per-item indexing, not sources[s:s+batch_size]: slicing a lazy view
+        # (PackedImages' resized rows) would resize the whole batch to count it.
+        m = min(batch_size, n - s)
+        decode_batch([sources[s + i] for i in range(m)], size, threads=threads,
+                     out=batch[:m])
+        return batch, batch_size - m
+
+    if len(starts) == 1:
+        yield decode_at(0)
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def produce() -> None:
+        try:
+            for s in starts:
+                if stop.is_set():
+                    return
+                q.put(decode_at(s))
+            q.put(None)
+        except BaseException as e:  # raised again on the consumer thread
+            q.put(e)
+
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        # Drain so the producer's blocked put() returns, then join it.
+        while producer.is_alive():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+            producer.join(timeout=0.05)
+
+
+class ImageCache:
+    """Decode a document set once; serve every stage's resolution from RAM.
+
+    ``base`` holds ``[N, base_size, base_size, 3]`` uint8 (the largest size
+    any stage needs); :meth:`at` derives smaller sizes on demand and keeps
+    them.  :meth:`fits` checks the RAM budget first, so that corpus-scale
+    callers can stream instead.
+    """
+
+    def __init__(self, sources: Sequence[ImageLike], base_size: int,
+                 threads: int = 4) -> None:
+        self.base_size = int(base_size)
+        self.threads = int(threads)
+        self.base = decode_batch(sources, self.base_size, threads=self.threads)
+        self._derived: dict = {}
+
+    @staticmethod
+    def fits(n_images: int, base_size: int, budget_mb: int) -> bool:
+        return n_images * base_size * base_size * 3 <= budget_mb * 2**20
+
+    def at(self, size: int) -> np.ndarray:
+        """``[N, size, size, 3]`` uint8 view of the corpus at ``size``."""
+        size = int(size)
+        if size == self.base_size:
+            return self.base
+        if size > self.base_size:
+            raise ValueError(f"ImageCache holds {self.base_size}px; cannot serve {size}px")
+        if size not in self._derived:
+            n = len(self.base)
+            out = np.empty((n, size, size, 3), np.uint8)
+
+            def work(i: int) -> None:
+                out[i] = resize_uint8(self.base[i], size)
+
+            if self.threads > 1 and n > 1:
+                with ThreadPoolExecutor(max_workers=self.threads) as pool:
+                    list(pool.map(work, range(n)))
+            else:
+                for i in range(n):
+                    work(i)
+            self._derived[size] = out
+        return self._derived[size]
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+
 def _pad_rows(chunk: Batch, batch_size: int) -> Batch:
     pad = batch_size - len(chunk)
     if not pad:
@@ -120,8 +274,8 @@ def iter_corpus_batches(images: Sequence[ImageLike], size: int,
     A :class:`DeviceImages` corpus yields device slices (resized on the
     device where ``size`` differs); an ``[N, size, size, 3]`` ndarray or
     tensor is sliced as it is, float arrays in uint8 range (max > 1.5)
-    scaled to [0, 1] per chunk; anything else is decoded to uint8 one image
-    at a time.
+    scaled to [0, 1] per chunk; anything else goes through
+    :func:`iter_padded_batches` (threaded decode and prefetch).
     """
     from .device_images import DeviceImages
 
@@ -142,13 +296,9 @@ def iter_corpus_batches(images: Sequence[ImageLike], size: int,
                     else chunk.to(torch.float32) / 255.0
             yield _pad_rows(chunk, batch_size), batch_size - len(chunk)
         return
-    for s in range(0, n, batch_size):
-        m = min(batch_size, n - s)
-        batch = np.zeros((batch_size, size, size, 3), np.uint8)
-        for i in range(m):
-            batch[i] = decode_image_uint8(images[s + i], size)
-        yield batch, batch_size - m
+    yield from iter_padded_batches(images, size, batch_size)
 
 
-__all__ = ["ImageLike", "decode_image_uint8", "iter_corpus_batches", "resize_f32",
+__all__ = ["ImageCache", "ImageLike", "decode_batch", "decode_image_uint8",
+           "effective_threads", "iter_corpus_batches", "iter_padded_batches", "resize_f32",
            "resize_uint8"]

@@ -40,6 +40,10 @@ def test_import_pulls_in_no_jax():
             "import dewi_tpu_torch.signals, dewi_tpu_torch.signals.text_entropy; "
             "import dewi_tpu_torch.signals.image_entropy, dewi_tpu_torch.signals.cross_modal; "
             "import dewi_tpu_torch.io, dewi_tpu_torch.io.device_images; "
+            "import dewi_tpu_torch.config, dewi_tpu_torch.corpus, dewi_tpu_torch.pipelines; "
+            "import dewi_tpu_torch.sampling, dewi_tpu_torch.io.packed; "
+            "import dewi_tpu_torch.ops.image_noise, dewi_tpu_torch.utils.progress; "
+            "import dewi_tpu_torch.signals.redundancy, dewi_tpu_torch.signals.noise; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -66,6 +70,11 @@ def test_new_modules_are_checked():
         "signals/text_entropy", "io/images", "io/device_images", "signals/image_entropy",
         "signals/cross_modal", "serve", "utils/msgpack")}
     assert signal_slice <= names
+    pipeline_slice = {f"dewi_tpu_torch/{m}.py" for m in (
+        "config", "corpus", "pipelines", "sampling", "io/packed", "io/images",
+        "io/device_images", "ops/image_noise", "utils/progress", "signals/redundancy",
+        "signals/noise")} | {"scripts/torch_process_corpus.py"}
+    assert pipeline_slice <= names
 
 
 def test_ivf_defaults_to_the_card():
