@@ -79,7 +79,24 @@ public entry points:
    float64); ``batched_image_noise`` on the 8,192 images on the card
    against the CPU on 256 (``scripts/torch_process_corpus.py`` holds the
    corpus and scan helpers);
-10. one JSON line with every kernel's launches, error and times.
+10. the command line (``dewi_tpu_torch.cli``) at the same widths, with
+   seeded LM, MAE and CLIP checkpoints: 8,192 text files of 1-500 bytes and
+   2,048 224-px images as a packed ``.npy``; 256 JPEG files through
+   ``pack-images`` against PIL's decode; ``config -o`` (its text equal to
+   the emitter's) and the config as JSON with an int8-query index;
+   ``process`` through ``cli.main`` (seconds per stage, document loading,
+   ``_save_results``, the index build and save, beside phase 9a's; every
+   artifact, every ``dewi_score`` in [0, 1], the index loads); 64 text
+   queries and one ``.npy`` query through ``search``, each equal to
+   ``DewiIndex.load(...).search(pipe.encode_query(q))``; ``eval`` with 256
+   of the corpus's own texts against their own documents, recall@10 >= 0.99
+   asserted; ``scores_matrix_s8`` launched by both; ``python -m
+   dewi_tpu_torch serve`` in a child process answering 32 text, 32 vector
+   and one ``/search_batch`` request as ``search`` did; ``sample`` with and
+   without ``--submodular``; ``native.available()`` asserted (the JSONL
+   codec and the minhash need only ``g++``; without libjpeg the JPEG pool is
+   left out, and a line says so);
+11. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -90,6 +107,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1542,6 +1560,7 @@ def phase_pipeline(card: str) -> dict:
                    rest_median_redundancy=float(np.median(red[rest])),
                    rest_max_redundancy=float(red[rest].max()))
         log("pipeline process_corpus: " + json.dumps({**row, "card": card}))
+        PIPE_9A.update({k: row[k] for k in ("docs", "seconds", "docs_per_s", "stage_seconds")})
         check(bool(np.isfinite(corpus.signals).all() and np.isfinite(corpus.dewi).all()),
               "pipeline: a signal column or dewi is not finite")
         check(row["planted_min_redundancy"] >= 0.99,
@@ -1558,6 +1577,312 @@ def phase_pipeline(card: str) -> dict:
                       f"planted {scan['planted_min']}")
     pipeline_noise_leg(dense, card)
     return launched
+
+
+# ---- phase 10: the command line -----------------------------------------------
+
+# 16,384 texts and 4,096 images added 103.9 s on an H100 (file writes and
+# reads, the checkpoints, a server's start); half of each keeps the phase
+# nearer its share of the time limit.
+N_CLI_TEXTS = 8_192         # 10a: text files of 1-500 bytes
+N_CLI_IMAGES = 2_048        # 10a: 224-px images in a packed .npy
+N_CLI_JPEGS = 256           # 10a: JPEG files through pack-images
+N_CLI_QUERIES = 64          # 10c: text queries through search
+N_CLI_EVAL = 256            # 10c: self-retrieval queries through eval
+N_CLI_SERVE = 32            # 10d: text requests, and as many vector requests
+N_CLI_SAMPLE = 100          # 10e: docs picked by sample
+CLI_EVAL_RECALL = 0.99
+CLI_SEARCH = {"k": K, "eta": 0.5, "entropy_pref": 1.0}  # the search command's defaults
+# The native pool and PIL decode the same JPEG with different libjpeg builds
+# and upsampling; the reference's own test holds them to this mean.
+JPEG_MEAN_ABS = 8.0
+PIPE_9A: dict = {}          # phase 9a's row, logged beside phase 10's
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output and error captured; their
+    last lines are logged when it raises or its exit code is not 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    failed = True
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            out = fn(*args)
+        failed = (out["rc"] if isinstance(out, dict) else out) != 0
+        return out
+    finally:
+        if failed:
+            log(buf.getvalue()[-3000:])
+
+
+def same_answer(got_ids: list, got_scores, want_ids: list, want_scores, tol: float = 1e-6) -> float:
+    """Scores within ``tol``; ids equal wherever the score is not tied.
+    Returns the largest score difference (raises on a mismatch)."""
+    got_scores, want_scores = np.asarray(got_scores, np.float64), np.asarray(want_scores, np.float64)
+    check(len(got_ids) == len(want_ids), f"cli: {len(got_ids)} results, want {len(want_ids)}")
+    diff = float(np.abs(got_scores - want_scores).max()) if len(got_ids) else 0.0
+    check(diff <= tol, f"cli: scores differ by {diff}")
+    for i, (a, b) in enumerate(zip(got_ids, want_ids)):
+        tied = int((np.abs(want_scores - want_scores[i]) <= tol).sum()) > 1
+        check(a == b or tied, f"cli: rank {i} holds {a}, want {b}")
+    return diff
+
+
+def cli_jpeg_leg(tmp: Path, dense: np.ndarray, card: str) -> dict:
+    """10a: JPEG files through ``pack-images`` (the native pool where it is
+    built), each row against PIL's decode of the same file."""
+    from dewi_tpu_torch import cli, native
+    from dewi_tpu_torch.io.images import decode_image_uint8
+    from dewi_tpu_torch.io.packed import PackedImages
+
+    try:
+        from PIL import Image
+    except ImportError:
+        log("cli jpeg: PIL is not installed here, so no JPEG is written: the JPEG leg is left out")
+        return {}
+    jdir = tmp / "jpegs"
+    jdir.mkdir()
+    for i in range(N_CLI_JPEGS):
+        Image.fromarray(dense[i]).save(jdir / f"j{i:04d}.jpg", quality=90)
+    pool = native.jpeg_pool_available()
+    if not pool:
+        log("cli jpeg: the native library was built without libjpeg (no jpeglib.h or "
+            "-ljpeg here), so pack-images decodes with PIL")
+    t = time.perf_counter()
+    # --workers 0: decode in this process (a spawned pool would import this
+    # script, and torch, in every worker first).
+    rc = quiet(cli.main, ["pack-images", str(jdir), str(tmp / "jpegs.npy"), "--workers", "0"])
+    pack_s = time.perf_counter() - t
+    check(rc == 0, f"cli: pack-images rc {rc}")
+    pack = PackedImages(tmp / "jpegs.npy")
+    names = json.loads((tmp / "jpegs.npy.manifest.json").read_text())
+    check(len(pack) == N_CLI_JPEGS == len(names), "cli: pack-images rows")
+    dev = np.array([np.abs(pack[i].astype(np.float32)
+                           - decode_image_uint8(names[i], 224).astype(np.float32)).mean()
+                    for i in range(N_CLI_JPEGS)])
+    row = {"jpegs": N_CLI_JPEGS, "native_pool": pool, "pack_s": pack_s,
+           "images_per_s": N_CLI_JPEGS / pack_s, "mean_abs_vs_pil_max": float(dev.max()),
+           "mean_abs_vs_pil_mean": float(dev.mean()), "bound": JPEG_MEAN_ABS, "card": card}
+    log("cli pack-images: " + json.dumps(row))
+    check(float(dev.max()) <= JPEG_MEAN_ABS, f"cli: a packed JPEG is {dev.max()} off PIL")
+    return row
+
+
+def cli_process_leg(tmp: Path, cfg_path: Path, out: Path, card: str) -> None:
+    """10b: ``process`` through ``cli.main``, then the artifacts."""
+    import torch_cli_process as tcp
+
+    from dewi_tpu_torch import DewiIndex
+
+    rec = quiet(tcp.run_process, ["--device", "cuda", "process", str(cfg_path), str(out),
+                                  "--texts", str(tmp / "texts"), "--images",
+                                  str(tmp / "images.npy")])
+    check(rec["rc"] == 0, f"cli: process rc {rec['rc']}")
+    n = N_CLI_TEXTS + N_CLI_IMAGES
+    batches = -(-n // 1000)
+    for name in ([f"documents_batch_{b:04d}.jsonl" for b in range(1, batches + 1)]
+                 + [f"embeddings_batch_{b:04d}.npz" for b in range(1, batches + 1)]
+                 + ["signals_summary.json", "metadata.json", "index/config.json",
+                    "index/ann_index/payloads.jsonl", "index/ann_index/embeddings.npy"]):
+        check((out / name).exists(), f"cli: process wrote no {name}")
+    summary = json.loads((out / "signals_summary.json").read_text())
+    meta = json.loads((out / "metadata.json").read_text())
+    dewi = np.array([r["dewi_score"] for r in summary], np.float64)
+    check(len(summary) == n and meta["num_documents"] == n and meta["dimensions"] == 512,
+          f"cli: {len(summary)} summary rows, metadata {meta}")
+    check(bool(((dewi >= 0) & (dewi <= 1)).all()), "cli: a dewi_score outside [0, 1]")
+    t = time.perf_counter()
+    index = DewiIndex.load(out / "index")
+    load_s = time.perf_counter() - t
+    check(len(index) == n and type(index._backend).__name__ == "QuantizedIndex"
+          and index._backend.int8_queries, "cli: the saved index")
+    check(index.encoder["checkpoint"] is not None, f"cli: index provenance {index.encoder}")
+    rec.update(docs=n, texts=N_CLI_TEXTS, images=N_CLI_IMAGES, docs_per_s=n / rec["seconds"],
+               index_load_s=load_s, capacity=index._backend.store.capacity)
+    log("cli process: " + json.dumps({**rec, "phase_9a": PIPE_9A, "card": card}))
+
+
+def cli_search_leg(tmp: Path, pipe, out: Path, queries: list, card: str) -> tuple:
+    """10c: ``search`` for each text query and one ``.npy`` query, each equal
+    to ``DewiIndex.load(...).search(pipe.encode_query(q))``; returns the
+    answers and the query vectors."""
+    from dewi_tpu_torch import DewiIndex, cli
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    index = DewiIndex.load(out / "index")
+    cs.reset_launch_counts()
+    answers, ms = [], []
+    for i, q in enumerate(queries):
+        res = tmp / f"search{i}.json"
+        t = time.perf_counter()
+        rc = quiet(cli.main, ["--device", "cuda", "search", str(out / "index"), q,
+                              "--k", str(K), "-o", str(res)])
+        ms.append((time.perf_counter() - t) * 1e3)
+        check(rc == 0, f"cli: search rc {rc}")
+        answers.append(json.loads(res.read_text()))
+    launched = cs.launch_counts["scores_matrix_s8"]
+    vecs = np.stack([pipe.encode_query(q) for q in queries])
+    max_diff = 0.0
+    for a, v in zip(answers, vecs):
+        want = index.search(v, **CLI_SEARCH)
+        max_diff = max(max_diff, same_answer([r["id"] for r in a], [r["score"] for r in a],
+                                             [d for d, _, _ in want], [s for _, s, _ in want]))
+    np.save(tmp / "query.npy", vecs[0])
+    check(quiet(cli.main, ["--device", "cuda", "search", str(out / "index"),
+                           str(tmp / "query.npy"), "-o", str(tmp / "search_npy.json")]) == 0,
+          "cli: .npy search")
+    a = json.loads((tmp / "search_npy.json").read_text())
+    same_answer([r["id"] for r in a], [r["score"] for r in a],
+                [r["id"] for r in answers[0]], [r["score"] for r in answers[0]])
+    log("cli search: " + json.dumps({
+        "queries": len(queries), "ms_p50": statistics.median(ms), "ms_max": max(ms),
+        "scores_matrix_s8_launches": launched, "answers_equal_library": True,
+        "scores_max_abs_diff": max_diff, "npy_query_equal": True, "card": card}))
+    check(launched > 0, "cli: search launched no scores_matrix_s8")
+    return answers, vecs, launched
+
+
+def cli_eval_leg(tmp: Path, out: Path, card: str) -> int:
+    """10c: ``eval`` with 256 of the corpus's own texts as queries and each
+    query's own document as its qrel; recall@10 asserted."""
+    from dewi_tpu_torch import cli
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    rows = [json.loads(line) for f in sorted(out.glob("documents_batch_*.jsonl"))
+            for line in f.read_text().splitlines()]
+    counts = collections.Counter(r["text"] for r in rows if r["text"])
+    picked = [r for r in rows if r["text"] and len(r["text"]) >= 32
+              and counts[r["text"]] == 1][:N_CLI_EVAL]
+    check(len(picked) == N_CLI_EVAL, "cli: too few distinct texts for eval")
+    qids = np.array([f"q{i}" for i in range(N_CLI_EVAL)])
+    np.savez(tmp / "queries.npz", query_ids=qids, texts=np.array([r["text"] for r in picked]))
+    (tmp / "qrels.json").write_text(json.dumps({q: [r["id"]] for q, r in zip(qids, picked)}))
+    cs.reset_launch_counts()
+    t = time.perf_counter()
+    rc = quiet(cli.main, ["--device", "cuda", "eval", str(out / "index"),
+                          str(tmp / "queries.npz"), str(tmp / "qrels.json"), "--eta", "0",
+                          "--entropy-pref", "0", "-o", str(tmp / "report.json")])
+    sec = time.perf_counter() - t
+    launched = cs.launch_counts["scores_matrix_s8"]
+    check(rc == 0, f"cli: eval rc {rc}")
+    report = json.loads((tmp / "report.json").read_text())
+    log("cli eval: " + json.dumps({"seconds": sec, "report": report,
+                                   "scores_matrix_s8_launches": launched, "card": card}))
+    check(report["recall@10"] >= CLI_EVAL_RECALL, f"cli: eval recall@10 {report['recall@10']}")
+    check(launched > 0, "cli: eval launched no scores_matrix_s8")
+    return launched
+
+
+def cli_serve_leg(out: Path, queries: list, vecs: np.ndarray, answers: list, card: str) -> None:
+    """10d: ``python -m dewi_tpu_torch serve`` in a child process: text and
+    vector requests and one ``/search_batch``, each equal to 10c's answer."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "dewi_tpu_torch", "--device", "cuda", "serve",
+                             str(out / "index"), "--port", "0"], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        first: list = []  # the line naming the port, printed once the index is up
+        reader = threading.Thread(target=lambda: first.append(proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(timeout=300)
+        line = first[0] if first else ""
+        check(line.startswith("Serving"), f"cli: serve printed {line!r}")
+        port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+        up_s = time.perf_counter() - t0
+        ms, max_diff = [], 0.0
+        n = N_CLI_SERVE
+        reqs = ([({"text": q, **CLI_SEARCH}, answers[i]) for i, q in enumerate(queries[:n])]
+                + [({"vector": vecs[i].tolist(), **CLI_SEARCH}, answers[i])
+                   for i in range(n, 2 * n)])
+        for req, want in reqs:
+            t = time.perf_counter()
+            got = post(port, "/search", req)
+            ms.append((time.perf_counter() - t) * 1e3)
+            max_diff = max(max_diff, same_answer(got["ids"], got["scores"],
+                                                 [r["id"] for r in want],
+                                                 [r["score"] for r in want]))
+        batch = post(port, "/search_batch", {"queries": [
+            {"vector": vecs[i].tolist(), **CLI_SEARCH} for i in range(8)]})["results"]
+        for got, want in zip(batch, answers[:8]):
+            same_answer(got["ids"], got["scores"], [r["id"] for r in want],
+                        [r["score"] for r in want])
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rest, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rest, err = proc.communicate()
+    log("cli serve: " + json.dumps({
+        "up_s": up_s, "text_requests": n, "vector_requests": n, "batch_requests": 8,
+        "ms_p50": statistics.median(ms), "answers_equal_search": True,
+        "scores_max_abs_diff": max_diff, "rc": proc.returncode,
+        "shut_down": "Shutting down." in rest, "card": card}))
+    check("Shutting down." in rest, f"cli: serve did not shut down: {err[-2000:]}")
+
+
+def cli_sample_leg(tmp: Path, out: Path, card: str) -> None:
+    """10e: ``sample`` by DEWI^tau and with ``--submodular``."""
+    from dewi_tpu_torch import cli
+
+    ids = {r["id"] for r in json.loads((out / "signals_summary.json").read_text())}
+    row = {}
+    for name, extra in (("dewi_tau", []), ("submodular", ["--submodular"])):
+        path = tmp / f"sample_{name}.txt"
+        t = time.perf_counter()
+        rc = quiet(cli.main, ["--device", "cuda", "sample", str(out), str(N_CLI_SAMPLE),
+                              *extra, "-o", str(path)])
+        row[f"{name}_s"] = time.perf_counter() - t
+        picked = path.read_text().split()
+        check(rc == 0 and len(picked) == N_CLI_SAMPLE == len(set(picked))
+              and set(picked) <= ids, f"cli: sample {name}")
+    log("cli sample: " + json.dumps({**row, "k": N_CLI_SAMPLE, "card": card}))
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 10: the command line at the reference's default widths;
+    returns the launches of ``scores_matrix_s8`` in ``search`` and ``eval``."""
+    import torch_cli_process as tcp
+
+    from dewi_tpu_torch import DewiConfig, DewiPipeline, cli, native
+
+    check(native.available(), "cli: the native library did not build")
+    log("cli native: " + json.dumps({"available": True, "jpeg_pool": native.jpeg_pool_available(),
+                                     "build_s": native.build_seconds, "card": card}))
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        tmp = Path(tmp)
+        setup = {}
+        t = time.perf_counter()
+        texts = tcp.write_texts(tmp / "texts", N_CLI_TEXTS, SIGNAL_SEED + 20)
+        setup["texts_s"] = time.perf_counter() - t
+        dense = tcp.write_pack(tmp / "images.npy", N_CLI_IMAGES, SIGNAL_SEED + 21)
+        setup["pack_s"] = time.perf_counter() - t - setup["texts_s"]
+        ckpts = tcp.save_checkpoints(tmp, SIGNAL_SEED)
+        setup["checkpoints_s"] = time.perf_counter() - t - setup["texts_s"] - setup["pack_s"]
+        check(quiet(cli.main, ["config", "-o", str(tmp / "dewi.yaml")]) == 0, "cli: config")
+        tree = tcp.cli_config({})
+        check((tmp / "dewi.yaml").read_text() == cli.yaml_dump(tree), "cli: config's YAML")
+        cfg = tcp.cli_config(ckpts, index={"ann": "int8", "int8_queries": True})
+        (tmp / "dewi.json").write_text(json.dumps(cfg))  # JSON: read with or without PyYAML
+        log("cli corpus: " + json.dumps({"texts": len(texts), "images": N_CLI_IMAGES,
+                                         "setup_s": time.perf_counter() - t, **setup,
+                                         "card": card}))
+        cli_jpeg_leg(tmp, np.asarray(dense[:N_CLI_JPEGS]), card)
+        out = tmp / "out"
+        cli_process_leg(tmp, tmp / "dewi.json", out, card)
+        pipe = DewiPipeline(DewiConfig.from_dict(cfg))
+        queries = synthetic_texts(N_CLI_QUERIES, SIGNAL_SEED + 22, lo=3, hi=120)
+        answers, vecs, launched = cli_search_leg(tmp, pipe, out, queries, card)
+        launched += cli_eval_leg(tmp, out, card)
+        cli_serve_leg(out, queries, vecs, answers, card)
+        cli_sample_leg(tmp, out, card)
+    return {"scores_matrix_s8": launched}
 
 
 def card_line() -> str:
@@ -1596,6 +1921,8 @@ def main() -> int:
     for name, n in phase_signals(card).items():
         launches[name] += n
     for name, n in phase_pipeline(card).items():
+        launches[name] += n
+    for name, n in phase_cli(card).items():
         launches[name] += n
 
     line = []

@@ -4,7 +4,10 @@ Counterpart of ``dewi_tpu/index/base.py``, with the same disk layout so an
 index saved by either package loads in the other: ``metadata.json``
 (dim/space/doc_ids/is_trained/type/hyperparams), ``payloads.npy``,
 ``payloads.jsonl`` (one ``{"doc_id": ..., "payload": {...}}`` line per doc;
-``"id"`` is accepted on read) and ``embeddings.npy``.
+``"id"`` is accepted on read) and ``embeddings.npy``.  ``payloads.jsonl``
+goes through the native codec when its library is built, and through the
+Python codec, which writes the same bytes, otherwise
+(:mod:`dewi_tpu_torch.native`).
 """
 
 from __future__ import annotations
@@ -15,36 +18,12 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ..types import PAYLOAD_FIELDS, Payload
+from ..native import read_payloads_jsonl, write_payloads_jsonl
+from ..types import Payload
 from ..utils.device import DeviceLike
 from .store import DocStore
 
 PathLike = Union[str, Path]
-
-
-def write_payloads_jsonl(path: PathLike, doc_ids: Sequence[str],
-                         matrix: np.ndarray) -> None:
-    """Write ``{"doc_id": ..., "payload": {...}}`` lines."""
-    matrix = np.asarray(matrix, dtype=np.float32)
-    with open(path, "w", encoding="utf-8") as f:
-        for doc_id, row in zip(doc_ids, matrix):
-            f.write(json.dumps({"doc_id": doc_id,
-                                "payload": Payload.from_array(row).to_dict()}) + "\n")
-
-
-def read_payloads_jsonl(path: PathLike) -> Tuple[List[str], np.ndarray]:
-    """Read back (doc_ids, [N, 8] matrix); tolerant of missing/extra keys."""
-    ids: List[str] = []
-    rows: List[np.ndarray] = []
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            if not line.strip():
-                continue
-            d = json.loads(line)
-            ids.append(str(d.get("doc_id", d.get("id", ""))))
-            rows.append(Payload.from_dict(d.get("payload", {})).to_array())
-    mat = np.stack(rows) if rows else np.zeros((0, len(PAYLOAD_FIELDS)), np.float32)
-    return ids, mat
 
 
 class BaseIndex:

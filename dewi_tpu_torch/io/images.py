@@ -4,16 +4,15 @@ The port's copy of ``dewi_tpu/io/images.py`` (numpy, PIL optional):
 
 * :func:`decode_image_uint8` — one decode (JPEG paths in PIL's draft mode)
   and a bilinear resize to the target square, as uint8;
-* :func:`decode_batch` — ordered decode on a thread pool;
+* :func:`decode_batch` — ordered decode: JPEG paths through the port's
+  native GIL-free decode pool (``csrc/native/dewi_jpeg.cpp``) when it is
+  built, everything else (and any slot the pool refuses) on a PIL thread
+  pool;
 * :func:`iter_padded_batches` — a bounded-queue prefetcher: a producer
   thread decodes the next batches while the caller's device step runs;
 * :class:`ImageCache` — decode once at a base size, serve smaller sizes;
 * :func:`iter_corpus_batches` — slices ndarray, tensor and
   :class:`DeviceImages` corpora and prefetches everything else.
-
-The reference routes JPEG paths through its native GIL-free decode pool
-(``native/dewi_jpeg.cpp``) first; the port decodes every source with PIL
-until it builds that library itself.
 """
 
 from __future__ import annotations
@@ -130,21 +129,48 @@ def effective_threads(threads: int, sources: Sequence[ImageLike]) -> int:
 def decode_batch(sources: Sequence[ImageLike], size: int, threads: int = 4,
                  out: Optional[np.ndarray] = None) -> np.ndarray:
     """Ordered parallel decode of ``sources`` into ``[N, size, size, 3]`` uint8
-    (into ``out`` when given)."""
+    (into ``out`` when given).
+
+    JPEG-suffixed paths go through the native decode pool first (libjpeg at
+    the best DCT scale and a bilinear resize on ``std::thread`` workers, no
+    GIL); the slots it cannot decode (other formats, CMYK, truncated files)
+    and every non-path source take the PIL path.  Only JPEG suffixes enter
+    the pool: probing a PNG there would read the whole file before the
+    header check fails.
+    """
     n = len(sources)
     if out is None:
         out = np.empty((n, size, size, 3), np.uint8)
+    native_threads = max(1, min(int(threads), os.cpu_count() or 1))
     threads = effective_threads(threads, sources)
+
+    todo = list(range(n))
+    jpg_idx = [i for i in todo if isinstance(sources[i], str)
+               and sources[i].lower().endswith((".jpg", ".jpeg", ".mpo"))]
+    if jpg_idx:
+        from ..native import decode_jpeg_batch
+
+        whole = len(jpg_idx) == n and out.flags["C_CONTIGUOUS"]
+        res = decode_jpeg_batch([sources[i] for i in jpg_idx], size,
+                                threads=native_threads, out=out if whole else None)
+        if res is not None:
+            dec, ok = res
+            if not whole:
+                for j, i in enumerate(jpg_idx):
+                    if ok[j]:
+                        out[i] = dec[j]
+            done = {i for j, i in enumerate(jpg_idx) if ok[j]}
+            todo = [i for i in todo if i not in done]
 
     def work(i: int) -> None:
         out[i] = decode_image_uint8(sources[i], size)
 
-    if n <= 1 or threads <= 1:
-        for i in range(n):
+    if len(todo) <= 1 or threads <= 1:
+        for i in todo:
             work(i)
         return out
-    with ThreadPoolExecutor(max_workers=min(threads, n)) as pool:
-        list(pool.map(work, range(n)))
+    with ThreadPoolExecutor(max_workers=min(threads, len(todo))) as pool:
+        list(pool.map(work, todo))
     return out
 
 

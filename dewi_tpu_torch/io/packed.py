@@ -9,8 +9,9 @@ the other.
   ``[N, S, S, 3]`` (written incrementally via ``open_memmap``; RAM use is
   one batch, not the corpus).  On multi-core hosts the decode fans out over
   a spawn-context process pool (PIL holds the GIL for much of its decode
-  path, so threads do not scale; processes sidestep it).  The reference's
-  native JPEG pool is not used by the port yet.
+  path, so threads do not scale; processes sidestep it).  Mostly-JPEG path
+  corpora decode through the port's native GIL-free JPEG pool instead,
+  straight into the mapping, when that pool is built.
 * :class:`PackedImages` — run-time view: ``np.load(mmap_mode="r")`` maps the
   file without reading it; per-row access faults in only the pages touched.
   Signal stages slice batches straight out of the mapping and downscale
@@ -87,8 +88,21 @@ def pack_images(
         tmp_path, mode="w+", dtype=np.uint8, shape=(n, size, size, 3)
     )
     nworkers = _n_decode_workers(workers)
+    # Mostly-JPEG path corpora decode through the native thread pool, not a
+    # process pool: the same core scaling without a spawn and a pickle per
+    # image, written straight into the mapping (decode_batch sends the odd
+    # non-JPEG slot to PIL).  ``workers`` bounds the native pool too.
+    from .. import native as _native
+
+    sample = [c for c in sources[:64] if isinstance(c, str)]
+    mostly_jpeg = bool(sample) and 2 * sum(
+        1 for c in sample if c.lower().endswith((".jpg", ".jpeg", ".mpo"))
+    ) >= len(sample)
+    use_native_pool = mostly_jpeg and _native.jpeg_pool_available()
+    ncpu = os.cpu_count() or 1
+    native_threads = ncpu if workers is None else max(1, min(int(workers), ncpu))
     pool = None
-    if nworkers > 0:
+    if nworkers > 0 and not use_native_pool:
         # spawn (not fork): the parent may hold a live CUDA context whose
         # state must not leak into decode children.
         import multiprocessing as mp
@@ -110,6 +124,11 @@ def pack_images(
                     _decode_one, [(c, size) for c in chunk], chunksize=16
                 ))
                 mm[s : s + len(rows)] = np.stack(rows)
+            elif use_native_pool:
+                from .images import decode_batch
+
+                decode_batch(chunk, size, threads=native_threads,
+                             out=mm[s : s + len(chunk)])
             else:
                 mm[s : s + len(chunk)] = np.stack(
                     [decode_image_uint8(c, size) for c in chunk]
@@ -275,7 +294,9 @@ def is_packed_corpus(path: Union[str, Path]) -> bool:
     try:
         with open(p, "rb") as f:
             version = np.lib.format.read_magic(f)
-            shape, _, dtype = np.lib.format._read_array_header(f, version)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, _, dtype = read(f)
         return len(shape) == 4 and shape[-1] == 3 and dtype == np.uint8
     except Exception:  # noqa: BLE001
         return False

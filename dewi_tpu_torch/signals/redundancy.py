@@ -11,9 +11,12 @@ Counterpart of ``dewi_tpu/signals/redundancy.py``:
 * :func:`topk_density` — the same scan with a running top-``top`` merge:
   the mean cosine to the ``top`` nearest other documents.
 * the host part — minhash, simhash and pHash signatures, LSH banding and
-  union-find clusters — copied from the reference.  Minhash runs the
-  reference's numpy path (its "reference semantics"); the native C++
-  shingle hasher comes with the slice that builds ``native/``.
+  union-find clusters — copied from the reference.  Minhash takes the
+  port's native shingle hasher (FNV-1a, :mod:`dewi_tpu_torch.native`) when
+  its library is built, and the numpy path (blake2b) otherwise or under
+  ``DEWI_TPU_NO_NATIVE=1``: the reference's own rule, so the port agrees
+  with the reference in either state (the two paths do not agree with each
+  other bit for bit).
 """
 
 from __future__ import annotations
@@ -150,7 +153,16 @@ def _shingles(text: str, k: int = 3) -> np.ndarray:
 def minhash_signatures(
     texts: Sequence[str], num_hashes: int = 64, seed: int = 0, k: int = 3
 ) -> np.ndarray:
-    """``[N, H]`` uint64 minhash signatures (universal hashing a*x+b mod p)."""
+    """``[N, H]`` uint64 minhash signatures (universal hashing a*x+b mod p).
+
+    The native shingle hasher when its library is available, else the numpy
+    path below (the reference's rule at ``dewi_tpu/signals/redundancy.py``).
+    """
+    from ..native import minhash_signatures_native
+
+    native = minhash_signatures_native(texts, num_hashes, seed=seed, k=k)
+    if native is not None:
+        return native
     rng = np.random.default_rng(seed)
     a = rng.integers(1, int(_MERSENNE), size=num_hashes, dtype=np.uint64)
     b = rng.integers(0, int(_MERSENNE), size=num_hashes, dtype=np.uint64)

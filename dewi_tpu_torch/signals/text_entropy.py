@@ -123,6 +123,12 @@ class TextEntropyEstimator:
         """``(nll, valid, mean, qs)`` of one padded batch, on the device."""
         ids_t = torch.from_numpy(ids).to(self.device).long()
         mask_t = torch.from_numpy(mask).to(self.device)
+        pad_id = int(self.tokenizer.pad_id)
+        if pad_id >= self.cfg.vocab_size:
+            # HF adapters pad with an out-of-vocab sentinel (vocab_size), as
+            # in the reference: zero it before the embedding gather.  Pad
+            # positions are attention- and loss-masked, so outputs are the same.
+            ids_t = torch.where(ids_t != pad_id, ids_t, 0)
         nll, valid = token_nll(self.model(ids_t, mask_t), ids_t, mask_t)
         if use_domain:
             dnll, _ = token_nll(self.domain_model(ids_t, mask_t), ids_t, mask_t)

@@ -178,12 +178,14 @@ def test_packed_images_cross_packages(tmp_path):
 
 @pytest.fixture
 def pil_jpeg(monkeypatch):
-    """The reference's PIL decode for JPEG paths (``DEWI_TPU_NO_NATIVE=1``
-    semantics): its native pool, which the port does not use yet, resizes
-    otherwise."""
+    """PIL decode for JPEG paths in both packages (``DEWI_TPU_NO_NATIVE=1``
+    semantics); ``tests/test_torch_native.py`` holds the two native pools to
+    each other."""
     import dewi_tpu.native as j_native
+    import dewi_tpu_torch.native as t_native
 
     monkeypatch.setattr(j_native, "decode_jpeg_batch", lambda *a, **k: None)
+    monkeypatch.setattr(t_native, "decode_jpeg_batch", lambda *a, **k: None)
 
 
 def _sources(tmp_path):

@@ -422,20 +422,17 @@ def test_approx_select_is_not_an_option(tmp_path):
 
 
 def test_payloads_jsonl_codec_matches_jax(tmp_path):
-    """The port's JSONL writer gives the JAX package's Python-fallback lines;
-    each package reads the other's file; ``"id"`` is accepted on read."""
-    import json
-
+    """The port's JSONL writer gives the JAX package's native writer's bytes
+    (float32 in its shortest round-trip form); each package reads the
+    other's file; ``"id"`` is accepted on read."""
     from dewi_tpu import native
-    from dewi_tpu.types import Payload as JPayload
     from dewi_tpu_torch.index.base import read_payloads_jsonl, write_payloads_jsonl
 
     mat = np.random.default_rng(3).random((5, 8)).astype(np.float32)
     ids = [f"doc {i}" for i in range(5)]
     write_payloads_jsonl(tmp_path / "port.jsonl", ids, mat)
-    want = [json.dumps({"doc_id": d, "payload": JPayload.from_array(r).to_dict()})
-            for d, r in zip(ids, mat)]
-    assert (tmp_path / "port.jsonl").read_text().splitlines() == want
+    native.write_payloads_jsonl(tmp_path / "want.jsonl", ids, mat)
+    assert (tmp_path / "port.jsonl").read_bytes() == (tmp_path / "want.jsonl").read_bytes()
     got_ids, got = native.read_payloads_jsonl(tmp_path / "port.jsonl")
     assert got_ids == ids
     np.testing.assert_array_equal(got, mat)

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dewi_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "click", "dewi_tpu")
 
 
 def _imported_roots(path):
@@ -44,6 +44,10 @@ def test_import_pulls_in_no_jax():
             "import dewi_tpu_torch.sampling, dewi_tpu_torch.io.packed; "
             "import dewi_tpu_torch.ops.image_noise, dewi_tpu_torch.utils.progress; "
             "import dewi_tpu_torch.signals.redundancy, dewi_tpu_torch.signals.noise; "
+            "import dewi_tpu_torch.cli, dewi_tpu_torch.__main__, dewi_tpu_torch.native; "
+            "import dewi_tpu_torch.eval, dewi_tpu_torch.metrics, dewi_tpu_torch.schemas; "
+            "import dewi_tpu_torch.backends, dewi_tpu_torch.local_weights; "
+            "import dewi_tpu_torch.robust, dewi_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -75,6 +79,86 @@ def test_new_modules_are_checked():
         "io/device_images", "ops/image_noise", "utils/progress", "signals/redundancy",
         "signals/noise")} | {"scripts/torch_process_corpus.py"}
     assert pipeline_slice <= names
+    cli_slice = {f"dewi_tpu_torch/{m}.py" for m in (
+        "cli", "__main__", "native/__init__", "eval", "metrics", "schemas", "backends",
+        "local_weights", "robust", "utils/profiling", "models/import_hf")} | {
+        "scripts/torch_cli_process.py"}
+    assert cli_slice <= names
+
+
+def test_native_build_stays_in_its_directory(tmp_path):
+    """Building the native library in a copy of the package writes nothing
+    outside ``dewi_tpu_torch/_build/``, reads its sources from
+    ``csrc/native/``, and builds again when a source is newer."""
+    import os
+    import shutil
+    import time
+
+    pkg = tmp_path / "dewi_tpu_torch"
+    shutil.copytree(ROOT / "dewi_tpu_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+
+    def listing():
+        return {str(p.relative_to(tmp_path)): p.stat().st_mtime_ns
+                for p in tmp_path.rglob("*") if "__pycache__" not in p.parts}
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import dewi_tpu_torch.native as n; "
+            "ok = n.available(); print(n.LIB_PATH); sys.exit(0 if ok else 1)")
+    env = {k: v for k, v in os.environ.items() if k != "DEWI_TPU_NO_NATIVE"}
+    before = listing()
+    proc = subprocess.run([sys.executable, "-B", "-c", code, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == str(pkg / "_build" / "native" / "libdewi_native.so")
+    after = listing()
+    new = sorted(set(after) - set(before))
+    assert new == ["dewi_tpu_torch/_build", "dewi_tpu_torch/_build/native",
+                   "dewi_tpu_torch/_build/native/libdewi_native.so"], new
+    # Every file that was there is untouched (a directory's own mtime moves
+    # when _build/ appears in it).
+    assert all(after[k] == v for k, v in before.items() if (tmp_path / k).is_file())
+    # A source newer than the library builds it again; an older one does not.
+    lib = pkg / "_build" / "native" / "libdewi_native.so"
+    built = lib.stat().st_mtime_ns
+    subprocess.run([sys.executable, "-B", "-c", code, str(tmp_path)], env=env, check=True,
+                   capture_output=True, timeout=300)
+    assert lib.stat().st_mtime_ns == built
+    time.sleep(0.01)
+    (pkg / "csrc" / "native" / "dewi_native.cpp").touch()
+    subprocess.run([sys.executable, "-B", "-c", code, str(tmp_path)], env=env, check=True,
+                   capture_output=True, timeout=300)
+    assert lib.stat().st_mtime_ns > built
+    assert sorted(set(listing()) - set(before)) == new
+
+
+@pytest.mark.cuda
+def test_card_cli_search_launches_a_kernel(tmp_path):
+    """``cli.main(["--device", "cuda", "search", ...])`` on a small int8
+    index with int8 queries launches a stage-1 kernel."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dewi_tpu_torch import DewiIndex, cli
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    rng = np.random.default_rng(0)
+    n = 10_000  # capacity 16,384: the gates route stage 1 to a kernel from 8,192 rows
+    emb = rng.normal(size=(n, 64)).astype(np.float32)
+    index = DewiIndex(dim=64, backend="int8", int8_queries=True, device="cpu")
+    index.add_batch([f"d{i}" for i in range(n)], emb, rng.random((n, 8)).astype(np.float32))
+    index.build()
+    index.save(tmp_path / "index")
+    np.save(tmp_path / "q.npy", emb[7])
+    cs.reset_launch_counts()
+    assert cli.main(["--device", "cuda", "search", str(tmp_path / "index"),
+                     str(tmp_path / "q.npy"), "--eta", "0", "--entropy-pref", "0",
+                     "-o", str(tmp_path / "r.json")]) == 0
+    assert sum(cs.launch_counts.values()) > 0
+    import json
+
+    assert json.loads((tmp_path / "r.json").read_text())[0]["id"] == "d7"
 
 
 def test_ivf_defaults_to_the_card():

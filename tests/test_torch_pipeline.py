@@ -365,8 +365,10 @@ def test_process_stream_corpus_equals_monolithic(f32, tmp_path):
 ], ids=["minhash", "simhash+phash", "phash", "embedding-only"])
 def test_redundancy_modes_match_reference(f32, redundancy, monkeypatch):
     import dewi_tpu.native
+    import dewi_tpu_torch.native
 
-    monkeypatch.setattr(dewi_tpu.native, "minhash_signatures_native", lambda *a, **k: None)
+    for native in (dewi_tpu.native, dewi_tpu_torch.native):  # numpy minhash in both
+        monkeypatch.setattr(native, "minhash_signatures_native", lambda *a, **k: None)
     port, ref = _pipelines(f32, redundancy=redundancy)
     spec = f32["spec"]
     pc = port.process_corpus(Corpus.from_documents(_port_docs(spec)))

@@ -4,15 +4,17 @@ Same seeded numpy inputs through both packages; the port runs on the CPU.
 Tolerances: the embedding scans (``max_offdiag_similarity``,
 ``topk_density``) within 1e-5 absolute (cosines lie in [-1, 1]); the hash
 signatures (minhash, simhash, pHash) bit for bit; the hash-mode scores and
-the clusters equal.  Minhash runs the reference's numpy path in both (the
-reference's native hasher switched off); one test shows that the
-reference's native hasher does not agree with its numpy path bit for bit.
+the clusters equal.  Minhash runs the numpy path in both here (both native
+hashers switched off); ``tests/test_torch_native.py`` holds the two native
+hashers to each other.  One test shows that the reference's native hasher
+does not agree with its numpy path bit for bit.
 """
 
 import numpy as np
 import pytest
 
 import dewi_tpu.native as j_native
+import dewi_tpu_torch.native as t_native
 from dewi_tpu.signals import redundancy as jr
 from dewi_tpu_torch.signals import redundancy as tr
 
@@ -21,8 +23,10 @@ SCAN_TOL = 1e-5
 
 @pytest.fixture(autouse=True)
 def numpy_minhash(monkeypatch):
-    """The reference's numpy minhash (``DEWI_TPU_NO_NATIVE=1`` semantics)."""
+    """The numpy minhash in both packages (``DEWI_TPU_NO_NATIVE=1``
+    semantics)."""
     monkeypatch.setattr(j_native, "minhash_signatures_native", lambda *a, **k: None)
+    monkeypatch.setattr(t_native, "minhash_signatures_native", lambda *a, **k: None)
 
 
 def _embeddings(n, d, seed, dups=()):
@@ -106,9 +110,11 @@ def test_signatures_bit_equal():
 def test_native_minhash_differs_from_the_numpy_path(monkeypatch):
     """The reference's native hasher does not equal its numpy path bit for
     bit: it hashes shingles with FNV-1a (``native/dewi_native.cpp``), the
-    numpy path with blake2b.  The port follows the numpy path; both give
-    equal signatures to equal texts."""
+    numpy path with blake2b.  The port's numpy path (its native hasher
+    switched off) differs from it the same way; both give equal signatures
+    to equal texts."""
     monkeypatch.undo()
+    monkeypatch.setattr(t_native, "minhash_signatures_native", lambda *a, **k: None)
     texts = _texts(40, 2)
     native = j_native.minhash_signatures_native(texts, 64, seed=0, k=3)
     if native is None:
