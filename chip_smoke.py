@@ -96,7 +96,19 @@ public entry points:
    without ``--submodular``; ``native.available()`` asserted (the JSONL
    codec and the minhash need only ``g++``; without libjpeg the JPEG pool is
    left out, and a line says so);
-11. one JSON line with every kernel's launches, error and times.
+11. training (``dewi_tpu_torch.training``) at the reference's default
+   settings: ``train_lm`` at the ``gpt2`` width (batch 32, seq_len 128, lr
+   3e-4) for 60 steps on synthetic texts, ms/step from CUDA events (median
+   of steps 11-60), tokens/s, peak memory, the model-FLOP share, the loss
+   at steps 1 and 60 (asserted to fall, the step-1 gradient finite), the
+   60-step checkpoint in ``TextEntropyEstimator`` (a corpus sentence's mean
+   entropy below a fresh model's); three steps of the tiny f32 LM on the
+   card against the CPU; ``train_moe_lm`` at the gpt2 width with 4 experts,
+   20 steps (CE and aux at the first and last step); ``train_mae`` and
+   ``train_clip`` at their base presets, 20 steps each.  After each timed
+   run, 5 more steps under ``torch.profiler``: device ms per step and the
+   idle share.  No search kernel runs here;
+12. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -639,7 +651,10 @@ def device_profile(fn, reps: int, top_n: int = 4) -> dict:
         for _ in range(reps):
             fn()
         sync()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # A user annotation on the device (the optimizer's ``Optimizer.step``
+    # range) spans kernels counted on their own: left out.
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     total_us = sum(e.self_device_time_total for e in dev)
     if not dev or total_us <= 0:
         return {"device_ms": "not measured"}
@@ -1885,6 +1900,236 @@ def phase_cli(card: str) -> dict:
     return {"scores_matrix_s8": launched}
 
 
+# ---- phase 11: training on the card ------------------------------------------
+
+TRAIN_SEED = 0
+N_TRAIN_TEXTS = 4096        # synthetic_texts of 1-500 bytes (seq_len 128 cuts most)
+TRAIN_STEPS = 60            # 11a: train_lm at the gpt2 width
+TRAIN_TIMED_FROM = 11       # 11a: steps 11-60 timed
+PARITY_STEPS = 3            # 11b: the tiny f32 LM, card against CPU
+PARITY_RTOL = 1e-4          # of the largest parameter magnitude; the losses relative
+NOISE_LED = 1e-6            # step-1 |grad| below this share of the global norm (nonzero)
+MOE_STEPS = 20              # 11c
+AUX_WEIGHT = 0.01           # train_moe_lm's default
+SIDE_STEPS = 20             # 11d: train_mae, train_clip
+SIDE_TIMED_FROM = 6
+PROFILE_STEPS = 5           # steps under the profiler after each timed run
+N_TRAIN_IMAGES = 256        # 11d: 224-px images in [0, 1]
+
+
+class StepClock:
+    """CUDA events recorded after each optimizer update (``loops._apply_update``
+    wrapped for the run), so consecutive events bracket one training step on
+    the device; also keeps step 1's global gradient norm, before clipping."""
+
+    def __init__(self) -> None:
+        self.events: list = []
+        self.grad_norm0 = None
+
+    def __enter__(self):
+        from dewi_tpu_torch.training import loops
+
+        self._loops, self._orig = loops, loops._apply_update
+
+        def timed(optimizer, scheduler):
+            if self.grad_norm0 is None:
+                grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                         if p.grad is not None]
+                self.grad_norm0 = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)))
+            self._orig(optimizer, scheduler)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+        loops._apply_update = timed
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._loops._apply_update = self._orig
+        sync()
+        self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def step_ms(self, first: int) -> float:
+        """Median ms of steps ``first``..last (step i ends at event i-1)."""
+        ev = self.events
+        return statistics.median(ev[i - 2].elapsed_time(ev[i - 1])
+                                 for i in range(first, len(ev) + 1))
+
+
+def train_line(kind: str, clock: StepClock, first: int, items: int, unit: str,
+               losses: list, card: str, run, **extra) -> dict:
+    """Log one training leg; ``run(steps)`` trains the same model on for
+    ``PROFILE_STEPS`` more steps under the profiler: device ms per step and
+    the idle share against the event-timed step."""
+    ms = clock.step_ms(first)
+    prof = device_profile(lambda: run(PROFILE_STEPS), reps=1, top_n=4)
+    busy = prof["device_ms"]
+    if isinstance(busy, float):
+        prof["device_ms_per_step"] = busy / PROFILE_STEPS
+        prof["idle_share"] = 1 - busy / PROFILE_STEPS / ms
+    row = {"steps": len(clock.events), "ms_per_step": ms, f"{unit}_per_s": items / ms * 1e3,
+           "peak_gb": clock.peak_gb, "loss_first": losses[0], "loss_last": losses[-1],
+           "grad_norm_step1": float(clock.grad_norm0), **extra, "profile": prof, "card": card}
+    log(f"train {kind}: " + json.dumps(row))
+    check(all(np.isfinite(losses)) and np.isfinite(row["grad_norm_step1"]),
+          f"train {kind}: a loss or the step-1 gradient is not finite")
+    return row
+
+
+def noise_led_grads(model, batch) -> dict:
+    """Per parameter, where the step-1 gradient of ``model`` on ``batch`` is
+    rounding noise: nonzero but below ``NOISE_LED`` of the global norm.  Adam
+    turns such noise of either sign into an update of up to lr."""
+    from dewi_tpu_torch.training.loops import _masked_ce
+
+    ids, mask = batch
+    model.zero_grad()
+    _masked_ce(model(ids, mask), ids, mask).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    gnorm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()])))
+    return {n: (g != 0) & (g.abs() < NOISE_LED * gnorm) for n, g in grads.items()}
+
+
+def train_parity(texts: list, card: str) -> None:
+    """11b: three steps of ``train_lm`` at the tiny f32 LM on the card and on
+    the CPU, from one init: losses within ``PARITY_RTOL`` relative, every
+    parameter within ``PARITY_RTOL`` of the largest magnitude, except where
+    the step-1 gradient is rounding noise (held to ``2 * lr * steps``)."""
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.signals.tokenizer import get_tokenizer
+    from dewi_tpu_torch.training import lm_batches, train_lm
+
+    cfg = registry.lm_config("tiny", dtype="float32")
+    lr = 3e-4
+    cpu = registry.init_lm(cfg, seed=TRAIN_SEED, device="cpu")
+    gpu = registry.init_lm(cfg, seed=TRAIN_SEED, device="cuda")
+    first = next(lm_batches(texts, get_tokenizer("byte"), 128, 32, 1, TRAIN_SEED))
+    led = noise_led_grads(registry.init_lm(cfg, seed=TRAIN_SEED, device="cpu"), first)
+    a = train_lm(cpu, texts, steps=PARITY_STEPS, lr=lr, log_every=1, seed=TRAIN_SEED)
+    b = train_lm(gpu, texts, steps=PARITY_STEPS, lr=lr, log_every=1, seed=TRAIN_SEED)
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a.losses, b.losses))
+    want = dict(cpu.named_parameters())
+    pmax = max(float(p.detach().abs().max()) for p in want.values())
+    worst = worst_led = 0.0
+    for name, p in gpu.named_parameters():
+        d = (p.detach().cpu() - want[name].detach()).abs()
+        m = led[name]
+        if (~m).any():
+            worst = max(worst, float(d[~m].max()) / pmax)
+        if m.any():
+            worst_led = max(worst_led, float(d[m].max()))
+    n_led = int(sum(int(m.sum()) for m in led.values()))
+    log("train parity: " + json.dumps({
+        "config": "tiny f32", "steps": PARITY_STEPS, "losses_cpu": a.losses,
+        "losses_card": b.losses, "loss_max_rel": loss_rel, "param_max_rel": worst,
+        "noise_led_elements": n_led, "noise_led_max_abs": worst_led,
+        "noise_led_bound": 2 * lr * PARITY_STEPS, "card": card}))
+    check(loss_rel <= PARITY_RTOL and worst <= PARITY_RTOL
+          and worst_led <= 2 * lr * PARITY_STEPS, "train: card and CPU disagree")
+
+
+def phase_training(card: str) -> None:
+    """Phase 11: the training loops on the card at the reference's default
+    widths and settings; launches none of the search kernels."""
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.moe import load_balance_loss
+    from dewi_tpu_torch.ops import cuda_search as cs
+    from dewi_tpu_torch.signals import TextEntropyEstimator
+    from dewi_tpu_torch.signals.tokenizer import get_tokenizer
+    from dewi_tpu_torch.training import lm_batches, train_clip, train_lm, train_mae, train_moe_lm
+    from dewi_tpu_torch.training.loops import _masked_ce
+    from torch_process_corpus import synthetic_images
+
+    cs.reset_launch_counts()
+    texts = synthetic_texts(N_TRAIN_TEXTS, TRAIN_SEED + 30)
+    tok = get_tokenizer("byte")
+    _, mask = tok.encode_batch(texts, 128, pad_to=128)
+    real = float(mask.mean())
+
+    # 11a: train_lm at the gpt2 width, the reference's defaults.
+    t = time.perf_counter()
+    lm = registry.init_lm(registry.lm_config("gpt2"), seed=TRAIN_SEED)
+    init_s = time.perf_counter() - t
+    n_params = registry.param_count(lm)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        ckpt = str(Path(tmp) / "lm.msgpack")
+        with StepClock() as clock:
+            state = train_lm(lm, texts, steps=TRAIN_STEPS, log_every=TRAIN_STEPS,
+                             seed=TRAIN_SEED, checkpoint=ckpt)
+        tokens = 32 * 128
+        row = train_line("lm", clock, TRAIN_TIMED_FROM, tokens, "tokens", state.losses, card,
+                         lambda n: train_lm(lm, texts, steps=n, log_every=n), model="gpt2",
+                         params=n_params, batch=32, seq_len=128, real_token_share=real,
+                         init_s=init_s)
+        mfu = 6 * n_params * tokens / (row["ms_per_step"] / 1e3) / BF16_OPS_PER_S
+        log("train lm model-flop share: " + json.dumps({
+            "flop_per_step": 6 * n_params * tokens, "share_of_bf16_peak": mfu,
+            "bound_ms": 6 * n_params * tokens / BF16_OPS_PER_S * 1e3, "card": card}))
+        check(state.losses[-1] < state.losses[0], "train lm: the loss did not fall")
+        del lm, state
+        kw = dict(model_name="gpt2", max_length=1024, batch_size=8, seed=TRAIN_SEED)
+        sentence = texts[1][:200]
+        trained = TextEntropyEstimator(checkpoint=ckpt, **kw).compute_entropy(sentence)
+        fresh = TextEntropyEstimator(**kw).compute_entropy(sentence)
+    log("train lm estimator: " + json.dumps({
+        "sentence_bytes": len(sentence.encode()), "trained_mean_entropy": trained.mean_entropy,
+        "fresh_mean_entropy": fresh.mean_entropy, "card": card}))
+    check(trained.mean_entropy < fresh.mean_entropy,
+          "train lm: the trained checkpoint does not lower the entropy")
+    torch.cuda.empty_cache()
+
+    # 11b: the card against the CPU.
+    train_parity(texts, card)
+
+    # 11c: train_moe_lm at the gpt2 width, 4 experts.
+    cfg = registry.lm_config("gpt2")
+    moe = registry.init_moe_lm(cfg, n_experts=4, capacity_factor=1.25, seed=TRAIN_SEED)
+    ids, msk = next(lm_batches(texts, tok, 128, 32, 1, TRAIN_SEED, "cuda"))
+    with torch.no_grad():
+        ce1 = float(_masked_ce(moe(ids, msk), ids, msk))
+        aux1 = float(load_balance_loss(moe))
+    with StepClock() as clock:
+        state = train_moe_lm(moe, texts, steps=MOE_STEPS, log_every=MOE_STEPS,
+                             aux_weight=AUX_WEIGHT, seed=TRAIN_SEED)
+    aux_last = float(load_balance_loss(moe).detach())  # kept from the last step's forward
+    train_line("moe_lm", clock, SIDE_TIMED_FROM, tokens, "tokens", state.losses, card,
+               lambda n: train_moe_lm(moe, texts, steps=n, log_every=n), model="gpt2",
+               n_experts=4, capacity_factor=1.25, params=registry.param_count(moe),
+               ce_first=ce1, aux_first=aux1, ce_last=state.losses[-1] - AUX_WEIGHT * aux_last, aux_last=aux_last)
+    check(abs(ce1 + AUX_WEIGHT * aux1 - state.losses[0]) <= 1e-3 * state.losses[0],
+          "train moe_lm: step 1's loss is not CE + aux")
+    check(state.losses[-1] < state.losses[0], "train moe_lm: the loss did not fall")
+    del moe, state
+    torch.cuda.empty_cache()
+
+    # 11d: train_mae and train_clip at their base presets.
+    images = synthetic_images(N_TRAIN_IMAGES, TRAIN_SEED + 31).astype(np.float32) / 255.0
+    mae = registry.init_mae(registry.mae_config("base"), seed=TRAIN_SEED)
+    with StepClock() as clock:
+        state = train_mae(mae, images, steps=SIDE_STEPS, batch_size=16, log_every=SIDE_STEPS,
+                          seed=TRAIN_SEED)
+    train_line("mae", clock, SIDE_TIMED_FROM, 16, "images", state.losses, card,
+               lambda n: train_mae(mae, images, steps=n, batch_size=16, log_every=n),
+               model="base", batch=16, params=registry.param_count(mae))
+    del mae, state
+    clip = registry.init_clip(registry.clip_config("base"), seed=TRAIN_SEED)
+    with StepClock() as clock:
+        state = train_clip(clip, texts[:N_TRAIN_IMAGES], images, steps=SIDE_STEPS,
+                           batch_size=32, log_every=SIDE_STEPS, seed=TRAIN_SEED)
+    train_line("clip", clock, SIDE_TIMED_FROM, 32, "pairs", state.losses, card,
+               lambda n: train_clip(clip, texts[:N_TRAIN_IMAGES], images, steps=n,
+                                    batch_size=32, log_every=n),
+               model="base", batch=32, params=registry.param_count(clip))
+    del clip, state
+    torch.cuda.empty_cache()
+    launched = sum(cs.launch_counts.values())
+    log(f"train: search-kernel launches {launched} (the training path runs none)")
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1924,6 +2169,7 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_cli(card).items():
         launches[name] += n
+    phase_training(card)
 
     line = []
     for name, rec in kernels.items():

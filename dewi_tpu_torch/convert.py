@@ -23,6 +23,7 @@ from .index.facade import DewiIndex
 from .models.clip import CLIPDualEncoder
 from .models.lm import CausalLM
 from .models.mae import ViTMAE
+from .models.moe import MoECausalLM
 from .models.transformer import Attention
 from .index.quantized import QuantizedIndex
 from .scorer import RobustStats
@@ -230,6 +231,14 @@ def clip_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     return _from_flax(tree, "CLIP", ("text_tower", "image_tower", "logit_scale"))
 
 
+def moe_lm_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A ``MoECausalLM`` state dict from the reference's ``MoECausalLM`` tree:
+    ``block_i/{ln_attn,attn,ln_mlp}`` as in the causal LM, ``moe/router`` a
+    Dense kernel ``[d, E]`` (a Linear weight ``[E, d]``), and the stacked
+    expert leaves ``w_in``, ``b_in``, ``w_out``, ``b_out`` kept as they are."""
+    return _from_flax(tree, "MoE causal LM", ("wte", "wpe", "block_0", "ln_final"))
+
+
 def lm_params_to_flax(model: CausalLM) -> dict:
     """``{"params": tree}`` as the reference's ``init_lm`` lays it out."""
     return _to_flax(model, CausalLM)
@@ -245,7 +254,12 @@ def clip_params_to_flax(model: CLIPDualEncoder) -> dict:
     return _to_flax(model, CLIPDualEncoder)
 
 
+def moe_lm_params_to_flax(model: MoECausalLM) -> dict:
+    """``{"params": tree}`` as the reference's ``MoECausalLM.init`` lays it out."""
+    return _to_flax(model, MoECausalLM)
+
+
 __all__ = ["index_from_numpy_state", "ivf_index_from_numpy_state",
            "stats_from_numpy_state", "lm_params_from_flax", "mae_params_from_flax",
            "clip_params_from_flax", "lm_params_to_flax", "mae_params_to_flax",
-           "clip_params_to_flax"]
+           "clip_params_to_flax", "moe_lm_params_from_flax", "moe_lm_params_to_flax"]

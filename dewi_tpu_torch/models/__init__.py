@@ -1,19 +1,22 @@
 """Signal backbones of the port: causal LM, ViT-MAE, CLIP dual encoder.
 
-Counterparts of ``dewi_tpu/models`` as ``torch.nn.Module``s; ``registry``
-holds the presets, seeded init and msgpack checkpoints.
+Counterparts of ``dewi_tpu/models`` as ``torch.nn.Module``s, and the
+single-device mixture-of-experts LM (``moe``); ``registry`` holds the
+presets, seeded init and checkpoints.
 """
 
 from .clip import CLIPConfig, CLIPDualEncoder
 from .lm import CausalLM, token_nll
 from .mae import MAEConfig, ViTMAE, patchify, pixel_entropy_proxy
-from .registry import (clip_config, init_clip, init_lm, init_mae, lm_config, load_params,
-                       mae_config, param_count, save_params)
+from .moe import MoECausalLM, MoEMLP, load_balance_loss
+from .registry import (clip_config, init_clip, init_lm, init_mae, init_moe_lm, lm_config,
+                       load_params, mae_config, param_count, save_params)
 from .transformer import Encoder, TransformerConfig
 
 __all__ = [
     "CausalLM", "token_nll", "ViTMAE", "MAEConfig", "patchify", "pixel_entropy_proxy",
     "CLIPDualEncoder", "CLIPConfig", "Encoder", "TransformerConfig",
-    "lm_config", "mae_config", "clip_config", "init_lm", "init_mae", "init_clip",
+    "MoECausalLM", "MoEMLP", "load_balance_loss",
+    "lm_config", "mae_config", "clip_config", "init_lm", "init_mae", "init_clip", "init_moe_lm",
     "save_params", "load_params", "param_count",
 ]

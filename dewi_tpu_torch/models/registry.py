@@ -10,12 +10,15 @@ reference's model for the same seed; weights cross between the packages
 only through checkpoints or :mod:`dewi_tpu_torch.convert`.
 
 Checkpoints are the reference's msgpack files (``flax.serialization``
-layout), read and written by :mod:`dewi_tpu_torch.utils.msgpack`.
+layout), read and written by :mod:`dewi_tpu_torch.utils.msgpack`.  The
+reference's orbax checkpoint directories are read too, through
+``tensorstore`` (imported only then); they are not written.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import math
 from pathlib import Path
 from typing import Any, Optional, Union
@@ -28,6 +31,7 @@ from ..utils.msgpack import packb, unpackb
 from .clip import CLIPConfig, CLIPDualEncoder
 from .lm import CausalLM
 from .mae import MAEConfig, ViTMAE
+from .moe import MoECausalLM
 from .transformer import TransformerConfig
 
 PathLike = Union[str, Path]
@@ -114,6 +118,9 @@ def clip_config(name: str = "small", vocab_size: int = 258,
 
 # Flax's raw parameters initialised by normal(0.02); logit_scale is a constant.
 _NORMAL_002 = ("enc_pos", "dec_pos", "mask_token", "cls", "pos")
+# The MoE's stacked expert kernels [E, in, out]: lecun_normal, whose fan_in
+# counts the leading axes with the input axis.
+_STACKED_KERNELS = ("w_in", "w_out")
 
 
 @torch.no_grad()
@@ -137,6 +144,9 @@ def _flax_init(model: nn.Module, seed: int, device: DeviceLike) -> nn.Module:
         for name, p in m.named_parameters(recurse=False):
             if name in _NORMAL_002:
                 p.normal_(0.0, 0.02, generator=g)
+            elif name in _STACKED_KERNELS:
+                sd = math.sqrt(1.0 / (p.numel() // p.shape[-1])) / 0.87962566103423978
+                nn.init.trunc_normal_(p, std=sd, a=-2 * sd, b=2 * sd, generator=g)
             elif name == "logit_scale":
                 p.fill_(math.log(1 / 0.07))
     return model.to(dev).eval()
@@ -154,17 +164,66 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: DeviceLike = None) -> CLIP
     return _flax_init(CLIPDualEncoder(cfg), seed, device)
 
 
-def _is_orbax_path(path: Path) -> bool:
-    return path.suffix == "" or str(path).endswith("/")
+def init_moe_lm(cfg: TransformerConfig, n_experts: int = 4, capacity_factor: float = 1.25,
+                seed: int = 0, device: DeviceLike = None) -> MoECausalLM:
+    return _flax_init(MoECausalLM(cfg, n_experts, capacity_factor), seed, device)
 
 
-def _refuse_orbax(path: Path) -> None:
-    if _is_orbax_path(path) or path.is_dir():
+def _is_orbax_path(path: PathLike) -> bool:
+    """The reference's rule: a path with no suffix (``ckpt``, ``ckpt/``) or an
+    existing directory is an orbax checkpoint."""
+    path = Path(path)
+    return path.suffix == "" or path.is_dir()
+
+
+def refuse_orbax_write(path: Optional[PathLike]) -> None:
+    """Raise for a checkpoint path that ``save_params`` would have to write
+    as an orbax directory (no suffix, or an existing directory).
+    The training loops call it before their first step."""
+    if path is not None and _is_orbax_path(path):
         raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read or written by "
-            "dewi_tpu_torch yet (the next slice of the port, with models/"
-            "import_hf.py); use a msgpack file (a path with a suffix)"
+            f"{path}: dewi_tpu_torch reads orbax checkpoint directories but does "
+            "not write them (ROADMAP.md section 3, deliberate differences); save "
+            "to a msgpack file instead, a path with a suffix such as "
+            "'model.msgpack', which both packages load"
         )
+
+
+def _read_orbax(path: Path) -> dict:
+    """The ``{"params": ...}`` tree of an orbax ``StandardCheckpointer``
+    directory (OCDBT layout, orbax's default), read leaf by leaf with
+    ``tensorstore``."""
+    root = path.resolve()
+    meta_file = root / "_METADATA"
+    if not meta_file.is_file():
+        raise FileNotFoundError(f"{path}: not an orbax checkpoint (no _METADATA)")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading an orbax checkpoint directory needs the "
+            "'tensorstore' package, which is not installed; install it, or "
+            "convert the directory to a msgpack file (a path with a suffix) "
+            "with the reference's load_params and save_params"
+        ) from e
+    meta = json.loads(meta_file.read_text())
+    if not meta.get("use_ocdbt", False):
+        raise ValueError(f"{path}: only orbax's OCDBT layout is read (use_ocdbt: true)")
+    array_format = "zarr3" if meta.get("use_zarr3", False) else "zarr"
+    keys, reads = [], []
+    for leaf in meta["tree_metadata"].values():
+        key = [str(k["key"]) for k in leaf["key_metadata"]]
+        spec = {"driver": array_format, "kvstore": {"driver": "ocdbt", "base": f"file://{root}/",
+                                              "path": ".".join(key)}}
+        keys.append(key)
+        reads.append(ts.open(spec, open=True, read=True).result().read())
+    tree: dict = {}
+    for key, fut in zip(keys, reads):
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = fut.result()
+    return tree
 
 
 def _converters(model: nn.Module) -> tuple:
@@ -172,7 +231,8 @@ def _converters(model: nn.Module) -> tuple:
 
     table = {CausalLM: (convert.lm_params_to_flax, convert.lm_params_from_flax),
              ViTMAE: (convert.mae_params_to_flax, convert.mae_params_from_flax),
-             CLIPDualEncoder: (convert.clip_params_to_flax, convert.clip_params_from_flax)}
+             CLIPDualEncoder: (convert.clip_params_to_flax, convert.clip_params_from_flax),
+             MoECausalLM: (convert.moe_lm_params_to_flax, convert.moe_lm_params_from_flax)}
     if type(model) not in table:
         raise TypeError(f"no checkpoint layout for {type(model).__name__}")
     return table[type(model)]
@@ -181,20 +241,24 @@ def _converters(model: nn.Module) -> tuple:
 def save_params(model: nn.Module, path: PathLike) -> None:
     """Write ``model``'s weights as the reference's msgpack checkpoint: the
     ``{"params": ...}`` tree its ``init_*`` returns, which its ``load_params``
-    reads into the same architecture."""
+    reads into the same architecture.  An orbax directory path (no suffix,
+    or an existing directory) raises: the port does not write that format."""
+    refuse_orbax_write(path)
     path = Path(path)
-    _refuse_orbax(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(packb(_converters(model)[0](model)))
 
 
 def load_params(model: nn.Module, path: PathLike) -> nn.Module:
-    """Read a msgpack checkpoint (the reference's or the port's) into
-    ``model``, in place, and return it.  Every parameter must be present with
-    its shape (``load_state_dict(strict=True)``)."""
-    path = Path(path)
-    _refuse_orbax(path)
-    state = _converters(model)[1](unpackb(path.read_bytes()))
+    """Read a checkpoint (the reference's or the port's) into ``model``, in
+    place, and return it: a msgpack file, or, for a path with no suffix or
+    an existing directory, the reference's orbax directory.  Every parameter
+    must be present with its shape (``load_state_dict(strict=True)``)."""
+    if _is_orbax_path(path):
+        tree = _read_orbax(Path(path))
+    else:
+        tree = unpackb(Path(path).read_bytes())
+    state = _converters(model)[1](tree)
     dev = next(model.parameters()).device
     model.load_state_dict({k: v.to(dev) for k, v in state.items()}, strict=True)
     return model
@@ -236,7 +300,7 @@ def checkpoint_fingerprint(path: Optional[PathLike]) -> Optional[str]:
 __all__ = [
     "LM_PRESETS", "MAE_PRESETS", "CLIP_PRESETS",
     "lm_config", "mae_config", "clip_config",
-    "init_lm", "init_mae", "init_clip",
-    "save_params", "load_params", "maybe_load",
+    "init_lm", "init_mae", "init_clip", "init_moe_lm",
+    "save_params", "load_params", "maybe_load", "refuse_orbax_write",
     "param_count", "checkpoint_fingerprint",
 ]

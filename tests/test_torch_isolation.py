@@ -8,7 +8,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "click", "dewi_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "click", "dewi_tpu")
+# tensorstore reads the reference's orbax directories, imported inside that
+# reader only: importing any module of the port must not load it.
+LOAD_FORBIDDEN = FORBIDDEN + ("tensorstore",)
 
 
 def _imported_roots(path):
@@ -22,7 +25,8 @@ def _imported_roots(path):
 
 
 PORT_FILES = (sorted((ROOT / "dewi_tpu_torch").rglob("*.py"))
-              + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
+              + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -48,8 +52,10 @@ def test_import_pulls_in_no_jax():
             "import dewi_tpu_torch.eval, dewi_tpu_torch.metrics, dewi_tpu_torch.schemas; "
             "import dewi_tpu_torch.backends, dewi_tpu_torch.local_weights; "
             "import dewi_tpu_torch.robust, dewi_tpu_torch.utils.profiling; "
+            "import dewi_tpu_torch.training, dewi_tpu_torch.training.loops; "
+            "import dewi_tpu_torch.models.moe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+            f"{LOAD_FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -84,6 +90,10 @@ def test_new_modules_are_checked():
         "local_weights", "robust", "utils/profiling", "models/import_hf")} | {
         "scripts/torch_cli_process.py"}
     assert cli_slice <= names
+    training_slice = {"dewi_tpu_torch/training/__init__.py", "dewi_tpu_torch/training/loops.py",
+                      "dewi_tpu_torch/models/moe.py"} | {
+        f"examples/torch_{m}.py" for m in ("quickstart", "index_tiers", "columnar_pipeline")}
+    assert training_slice <= names
 
 
 def test_native_build_stays_in_its_directory(tmp_path):
