@@ -108,7 +108,20 @@ public entry points:
    ``train_clip`` at their base presets, 20 steps each.  After each timed
    run, 5 more steps under ``torch.profiler``: device ms per step and the
    idle share.  No search kernel runs here;
-12. one JSON line with every kernel's launches, error and times.
+12. the data axis (``dewi_tpu_torch.parallel``) on the one card: (12a) a
+   world of one over NCCL, where the sharded exact, int8, int8-query, int4
+   and IVF searchers equal the single-device ``DewiIndex`` tiers on the
+   bench corpus (scores within 1e-6, ids where scores differ); (12b) four
+   ranks sharing the card over gloo (``launch_local``), each holding a
+   262,144-row shard and running the stage-1 kernels on it: recall@10
+   against exact f32 (>= 0.99, IVF >= 0.95), Q=1 p50, ms/query at Q=1000
+   and the all-gathers' share, every rank's launches counted; (12c)
+   ``DewiPipeline(mesh=)`` on four ranks over 4,096 docs (half with a
+   224-px image) at the default presets against one process (the columns
+   and DEWI within phase 9's 1e-2), and ``max_offdiag_similarity_sharded``
+   on 262,144 x 512 within 1e-6 of the single-device scan.  Four ranks on
+   one card measure the collectives and the shared card, not scaling;
+13. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -128,6 +141,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -619,15 +633,15 @@ def phase_off_grid() -> None:
 # ---- phase 4: bench protocol at 1M x 256 --------------------------------------
 
 
-def corpus():
+def corpus(n: int = N_DOCS, nq: int = N_QUERIES, device: str = "cuda"):
     from dewi_tpu_torch.types import PAYLOAD_FIELDS
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    emb = torch.randn(N_DOCS, DIM, device="cuda", generator=g)
+    g = torch.Generator(device=device).manual_seed(0)
+    emb = torch.randn(n, DIM, device=device, generator=g)
     torch.manual_seed(0)  # the gamma sampler draws from the default generator
-    sig = torch.distributions.Gamma(torch.full((N_DOCS, 7), 2.0, device="cuda"),
-                                    torch.ones((N_DOCS, 7), device="cuda")).sample()
-    queries = torch.randn(N_QUERIES, DIM, device="cuda", generator=g)
+    sig = torch.distributions.Gamma(torch.full((n, 7), 2.0, device=device),
+                                    torch.ones((n, 7), device=device)).sample()
+    queries = torch.randn(nq, DIM, device=device, generator=g)
     check(len(PAYLOAD_FIELDS) == 8, "payload layout")
     return emb, sig, queries
 
@@ -2130,6 +2144,390 @@ def phase_training(card: str) -> None:
     log(f"train: search-kernel launches {launched} (the training path runs none)")
 
 
+# ---- phase 12: the data axis over ranks ---------------------------------------
+
+# One card: NCCL refuses two ranks on one GPU, so the multi-rank legs run
+# ranks that share the card over gloo (12b, 12c), and 12a is a world of one
+# over NCCL.  Neither measures scaling: four ranks on one card measure what
+# the collectives and the shared card cost.
+N_RANKS = 4
+MESH_TIERS = (  # tier -> DewiIndex backend and options, sharded searcher options
+    ("exact_f32", "exact", {}, {}),
+    ("int8", "int8", {}, {}),
+    ("int8_s8", "int8", {"int8_queries": True}, {"int8_queries": True}),
+    ("int4", "int4", {}, {"int4_storage": True}),
+    ("ivf", "ivf", {"nlist": 1024, "nprobe": 32, "dewi_tier": 1024, "kmeans_iters": 8}, {}),
+)
+N_MESH_Q1 = 50              # Q=1 searches timed per tier on the ranks
+N_GATHER_REPS = 50          # all-gathers timed per shape
+MESH_TIMEOUT_S = 600.0      # one launch of the ranks, and each collective
+MESH_SCORE_TOL = 1e-6       # 12a: the sharded answer against the single-device index
+N_DP_DOCS, N_DP_IMAGES, N_DP_DUPS = 4_096, 2_048, 32   # 12c: process_corpus
+N_DP_WARM = 256             # 12c: docs of the warm-up run that builds the estimators
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def same_topk(got, want, tol: float) -> float:
+    """Scores within ``tol`` (absolute), ids equal wherever the wanted scores
+    stand more than twice that apart (equal scores may come in any order)."""
+    s, i = (torch.as_tensor(a).cpu() for a in got)
+    ws, wi = (torch.as_tensor(a).cpu() for a in want)
+    check(s.shape == ws.shape and i.shape == wi.shape, f"shapes {s.shape} != {ws.shape}")
+    err = float((s.float() - ws.float()).abs().max())
+    check(err <= tol, f"scores differ by {err}")
+    gap = ws[:, :-1] - ws[:, 1:]
+    clear = torch.ones_like(ws, dtype=torch.bool)
+    clear[:, 1:] &= gap > 2 * tol
+    clear[:, :-1] &= gap > 2 * tol
+    check(torch.equal(i.long()[clear], wi.long()[clear]), "ids differ where the scores are apart")
+    return err
+
+
+def sharded_searcher(tier: str, target, mesh, opts: dict):
+    """The tier's sharded searcher over ``target``: a ``DocStore``, or for
+    IVF an ``IVFIndex`` (built on the first rank)."""
+    from dewi_tpu_torch.parallel import (ShardedExactSearcher, ShardedIVFSearcher,
+                                         ShardedQuantizedSearcher)
+
+    if tier == "exact_f32":
+        return ShardedExactSearcher(target, mesh, k=K)
+    if tier == "ivf":
+        return ShardedIVFSearcher(target, mesh, k=K)
+    return ShardedQuantizedSearcher(target, mesh, k=K, **opts)
+
+
+def mesh_bench_data(n: int, nq: int, device: str) -> tuple:
+    """The bench corpus (phase 4's seeded tensors) on the host: rows,
+    payloads with the scorer's DEWI column, queries, doc ids."""
+    from dewi_tpu_torch import DewiScorer
+
+    emb, sig, queries = corpus(n, nq, device)
+    dewi = DewiScorer(device=device).fit_and_score(sig)
+    pay = torch.cat([dewi[:, None], sig], dim=1).cpu().numpy()
+    return (emb.cpu().numpy(), pay, queries.cpu().numpy(), [str(i) for i in range(n)])
+
+
+def mesh_world_of_one(data: tuple, rendezvous: str, device: str, card: str) -> tuple:
+    """12a: a world of one over NCCL (gloo off the card).  Each tier's
+    sharded searcher over one shard equals the single-device ``DewiIndex``
+    on all queries; returns (the exact tier's answer, launches)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dewi_tpu_torch import DewiIndex
+    from dewi_tpu_torch.index.store import DocStore
+    from dewi_tpu_torch.ops import cuda_search as cs
+    from dewi_tpu_torch.parallel import make_mesh
+
+    emb, pay, queries, doc_ids = data
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    launches: collections.Counter = collections.Counter()
+    rows, exact = {}, None
+    try:
+        mesh = make_mesh(device=None if backend == "nccl" else device)
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.group() is not None,
+              "12a: the mesh of a world of one")
+        for tier, backend_name, kw, opts in MESH_TIERS:
+            t = time.perf_counter()
+            index = DewiIndex(dim=DIM, backend=backend_name, rerank_eta=ETA, entropy_pref=EP,
+                              device=mesh.device, **kw)
+            index.add_batch(doc_ids, emb, pay)
+            index.build()
+            want = index.search_batch(queries, k=K)
+            if tier == "ivf":
+                target = index._backend
+            else:
+                target = DocStore(DIM, device=mesh.device)
+                target.add_batch(doc_ids, emb, pay)
+            searcher = sharded_searcher(tier, target, mesh, opts)
+            cs.reset_launch_counts()
+            got = searcher.search_batch(queries, eta=ETA, entropy_pref=EP)
+            _sync(mesh.device)
+            counts = {k: v for k, v in cs.launch_counts.items() if v}
+            launches.update(counts)
+            err = same_topk(got, want, MESH_SCORE_TOL)
+            rows[tier] = {"max_abs_err": err, "launches": counts,
+                          "seconds": time.perf_counter() - t}
+            if tier == "exact_f32":
+                exact = (want[0].cpu(), want[1].cpu())
+            del index, target, searcher, got, want
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log("mesh 12a world of one: " + json.dumps({"backend": backend, "queries": len(queries),
+                                                "equal_to_single_device": rows, "card": card}))
+    check(all(rows[t]["launches"] for t in ("int8", "int8_s8", "int4")) or backend == "gloo",
+          "12a: a quantized tier launched no kernel")
+    return exact, launches
+
+
+def _time_q1(fn, queries, n: int, device) -> float:
+    lat = []
+    for i in range(min(n, len(queries))):
+        t = time.perf_counter()
+        fn(queries[i:i + 1])
+        _sync(device)
+        lat.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(lat)
+
+
+def _gather_ms(mesh, nq: int, reps: int, device=None) -> float:
+    """Median ms of the merge's two all-gathers ([nq, k] scores and ids) of
+    tensors on ``device`` (the mesh's: as a sharded search runs them; the
+    host's: the collective alone, without the copies to and from the card)."""
+    device = device or mesh.device
+    v = torch.zeros((nq, K), device=device)
+    i = torch.zeros((nq, K), dtype=torch.long, device=device)
+    out = []
+    for _ in range(reps):
+        _sync(mesh.device)
+        t = time.perf_counter()
+        mesh.all_gather(v, dim=1)
+        mesh.all_gather(i, dim=1)
+        _sync(mesh.device)
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def mesh_search_rank(paths: dict, n_q1: int, device) -> dict:
+    """12b, one rank: its shard of the bench corpus in every sharded tier;
+    Q=1 and Q=1000 times, the all-gathers' times, rank 0's answers and the
+    launches of every rank."""
+    import torch.distributed as dist
+
+    from dewi_tpu_torch import IVFIndex
+    from dewi_tpu_torch.index.store import DocStore
+    from dewi_tpu_torch.ops import cuda_search as cs
+    from dewi_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device=device)
+    emb = np.load(paths["emb"], mmap_mode="r")
+    pay = np.load(paths["pay"])
+    queries = torch.from_numpy(np.load(paths["queries"])).to(mesh.device)
+    doc_ids = [str(i) for i in range(len(emb))]
+    t = time.perf_counter()
+    store = DocStore(DIM, device=mesh.device)
+    store.add_batch(doc_ids, emb, pay)
+    rows = {"store_s": time.perf_counter() - t}
+    cs.reset_launch_counts()
+    for tier, _, kw, opts in MESH_TIERS:
+        t = time.perf_counter()
+        if tier == "ivf":
+            target = IVFIndex(dim=DIM, device=mesh.device, **kw)
+            if mesh.data_index == 0:  # the first rank builds; the shards are scattered
+                target.add_batch(doc_ids, emb, pay)
+        else:
+            target = store
+        searcher = sharded_searcher(tier, target, mesh, opts)
+        _sync(mesh.device)
+        setup_s = time.perf_counter() - t
+
+        def run(q):
+            return searcher.search_batch(q, eta=ETA, entropy_pref=EP)
+
+        run(queries[:1])
+        q1 = _time_q1(run, queries, n_q1, mesh.device)
+        run(queries)
+        _sync(mesh.device)
+        t = time.perf_counter()
+        s, ids = run(queries)
+        _sync(mesh.device)
+        batched = (time.perf_counter() - t) * 1e3 / len(queries)
+        g1 = _gather_ms(mesh, 1, N_GATHER_REPS)
+        gb = _gather_ms(mesh, len(queries), 5)
+        rows[tier] = {"setup_s": setup_s, "q1_p50_ms": q1, "batched_ms_per_query": batched,
+                      "gather_q1_ms": g1, "gather_q1000_ms": gb,
+                      "gather_q1_host_tensors_ms": _gather_ms(mesh, 1, N_GATHER_REPS, "cpu"),
+                      "gather_share_q1": g1 / q1,
+                      "gather_share_q1000": gb / (batched * len(queries)),
+                      "answer": (s.cpu().numpy(), ids.cpu().numpy())}
+        del searcher, target
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, dict(cs.launch_counts))
+    return {"rows": rows, "launches": {k: sum(c[k] for c in counts) for k in counts[0]},
+            "device": str(mesh.device), "backend": dist.get_backend(),
+            "shard_rows": store.device_arrays()[0].shape[0]}
+
+
+def mesh_sharded_search(data: tuple, exact: tuple, tmp: Path, device, card: str) -> dict:
+    """12b: four ranks share the card over gloo; answers held to the
+    single-device exact index; returns the launches of every rank."""
+    from dewi_tpu_torch.parallel import launch_local
+
+    emb, pay, queries, _ = data
+    paths = {k: str(tmp / f"{k}.npy") for k in ("emb", "pay", "queries")}
+    for k, a in (("emb", emb), ("pay", pay), ("queries", queries)):
+        np.save(paths[k], a)
+    t = time.perf_counter()
+    out = launch_local(mesh_search_rank, N_RANKS, (paths, N_MESH_Q1, device), backend="gloo",
+                       timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    rows = out.pop("rows")
+    summary = {}
+    for tier, *_ in MESH_TIERS:
+        row = rows[tier]
+        s, ids = row.pop("answer")
+        rec = recall(torch.from_numpy(ids).long(), exact[1].long())
+        if tier == "exact_f32":
+            row["max_abs_err_vs_single_device"] = same_topk((s, ids), exact, 1e-5)
+        row["recall_at_10"] = rec
+        floor = IVF_RANDOM_RECALL_FLOOR if tier == "ivf" else 0.99
+        check(rec >= floor, f"12b {tier}: recall@10 {rec} < {floor}")
+        summary[tier] = row
+    log("mesh 12b sharded search, 4 ranks on one card (gloo): " + json.dumps({
+        "ranks": N_RANKS, "shard_rows": out["shard_rows"], "launch_s": wall,
+        "store_s": rows["store_s"], "tiers": summary, "launches": out["launches"],
+        "device": out["device"], "backend": out["backend"], "card": card}))
+    for name in ("bmax", "bmax_s8", "bmax_s4"):
+        check(out["launches"][name] > 0 or torch.device(device or "cuda").type == "cpu",
+              f"12b: the ranks launched no {name}")
+    return out["launches"]
+
+
+def mesh_scan_input(n: int, dim: int, device) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(3)
+    emb = torch.randn(n, dim, device=device, generator=g)
+    return emb / emb.norm(dim=1, keepdim=True)
+
+
+def mesh_signals_rank(cfg_dict: dict, sizes: tuple, scan: tuple, device) -> dict:
+    """12c, one rank: ``DewiPipeline(mesh=)`` over the corpus, then the
+    sharded max off-diagonal scan; rank 0's results."""
+    import torch.distributed as dist
+    import torch_process_corpus as tpc
+
+    from dewi_tpu_torch import DewiConfig, DewiPipeline
+    from dewi_tpu_torch.parallel import make_mesh
+    from dewi_tpu_torch.signals.redundancy import max_offdiag_similarity_sharded
+
+    mesh = make_mesh(device=device)
+    dev = str(mesh.device.type)
+    n, n_img, dups, size = sizes
+    t = time.perf_counter()
+    pipe = DewiPipeline(DewiConfig.from_dict(cfg_dict), mesh=mesh)
+    warm, _, _ = tpc.make_corpus(N_DP_WARM, N_DP_WARM // 2, 4, SIGNAL_SEED + 11, size, dev)
+    pipe.process_corpus(warm)  # builds and replicates the estimators
+    warm_s = time.perf_counter() - t
+    corpus, planted, _ = tpc.make_corpus(n, n_img, dups, SIGNAL_SEED + 20, size, dev)
+    mesh.barrier()
+    _sync(mesh.device)
+    t = time.perf_counter()
+    pipe.process_corpus(corpus)
+    _sync(mesh.device)
+    seconds = time.perf_counter() - t
+    emb = mesh_scan_input(*scan, mesh.device)
+    mesh.barrier()
+    _sync(mesh.device)
+    t = time.perf_counter()
+    red = max_offdiag_similarity_sharded(emb, mesh)
+    scan_s = time.perf_counter() - t
+    return {"signals": corpus.signals, "dewi": corpus.dewi, "seconds": seconds,
+            "warm_up_s": warm_s, "scan": red, "scan_s": scan_s,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                            if mesh.device.type == "cuda" else 0.0),
+            "backend": dist.get_backend(), "planted": planted}
+
+
+def mesh_signals(cfg_dict: dict, sizes: tuple, scan: tuple, device, card: str) -> None:
+    """12c: the data-parallel pipeline and scan on four ranks against one
+    process on the same card and inputs."""
+    import torch_process_corpus as tpc
+
+    from dewi_tpu_torch import DewiConfig, DewiPipeline
+    from dewi_tpu_torch.signals.redundancy import max_offdiag_similarity
+    from dewi_tpu_torch.types import SIGNAL_FIELDS
+
+    dev = device or "cuda"
+    n, n_img, dups, size = sizes
+    pipe = DewiPipeline(DewiConfig.from_dict(cfg_dict), device=dev)
+    warm, _, _ = tpc.make_corpus(N_DP_WARM, N_DP_WARM // 2, 4, SIGNAL_SEED + 11, size, dev)
+    pipe.process_corpus(warm)
+    corpus, planted, _ = tpc.make_corpus(n, n_img, dups, SIGNAL_SEED + 20, size, dev)
+    _sync(dev)
+    t = time.perf_counter()
+    pipe.process_corpus(corpus)
+    _sync(dev)
+    one_s = time.perf_counter() - t
+    emb = mesh_scan_input(*scan, dev)
+    max_offdiag_similarity(emb[:1024])  # warm-up
+    _sync(dev)
+    t = time.perf_counter()
+    want_scan = max_offdiag_similarity(emb)
+    one_scan_s = time.perf_counter() - t
+    del pipe, emb
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    from dewi_tpu_torch.parallel import launch_local
+
+    t = time.perf_counter()
+    out = launch_local(mesh_signals_rank, N_RANKS, (cfg_dict, sizes, scan, device),
+                       backend="gloo", timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    devs = {k: col_dev(out["signals"][:, j], corpus.signals[:, j])
+            for j, k in enumerate(SIGNAL_FIELDS)}
+    # DEWI is the scorer over the gathered signals: held exactly to the same
+    # fit on the mesh's signals.  Against one process it moves by what each
+    # column's deviation is worth in robust z units (deviation / (1.4826 *
+    # MAD) of the one-process fit), logged beside it.
+    scorer = DewiPipeline(DewiConfig.from_dict(cfg_dict), device=dev)._make_scorer()
+    scorer.fit_and_score(corpus.signals)
+    mads = dict(scorer.stats.mads)
+    want_dewi = scorer.fit_and_score(out["signals"]).cpu().numpy()
+    z_moves = {k: float(np.abs(out["signals"][:, j] - corpus.signals[:, j]).max()
+                        / (1.4826 * mads[k])) for j, k in enumerate(SIGNAL_FIELDS)}
+    dewi_dev = float(np.abs(out["dewi"] - corpus.dewi).max())
+    rescored = col_dev(out["dewi"], want_dewi)
+    scan_err = float(np.abs(out["scan"] - want_scan).max())
+    red = out["signals"][:, SIGNAL_FIELDS.index("redundancy")]
+    log("mesh 12c data-parallel signals, 4 ranks on one card (gloo): " + json.dumps({
+        "docs": n, "images": n_img, "launch_s": wall, "warm_up_s": out["warm_up_s"],
+        "seconds": out["seconds"], "docs_per_s": n / out["seconds"],
+        "one_process_seconds": one_s, "one_process_docs_per_s": n / one_s,
+        "max_dev_vs_one_process": devs, "rtol": PIPE_RTOL,
+        "dewi_vs_scorer_on_mesh_signals": rescored,
+        "dewi_max_abs_diff_vs_one_process": dewi_dev,
+        "docs_dewi_off_by_1e-2": int((np.abs(out["dewi"] - corpus.dewi) > 1e-2).sum()),
+        "column_deviation_in_z_units": z_moves, "one_process_mads": mads,
+        "planted_min_redundancy": float(red[planted].min()),
+        "scan": {"n": scan[0], "dim": scan[1], "seconds": out["scan_s"],
+                 "one_process_seconds": one_scan_s, "max_abs_diff": scan_err},
+        "peak_mem_gb_rank0": out["peak_mem_gb"], "backend": out["backend"], "card": card}))
+    check(bool(np.isfinite(out["signals"]).all() and np.isfinite(out["dewi"]).all()),
+          "12c: a signal or dewi is not finite")
+    worst = max(devs.values())
+    check(worst <= PIPE_RTOL, f"12c: the mesh pipeline's signals are off one process by {worst}")
+    check(rescored <= 1e-6, f"12c: DEWI is off the scorer on the gathered signals by {rescored}")
+    check(scan_err <= 1e-6, f"12c: the sharded scan is off the single-device scan by {scan_err}")
+    check(float(red[planted].min()) >= 0.99, "12c: a planted duplicate was missed")
+
+
+def phase_mesh(card: str, n_docs: int = N_DOCS, n_queries: int = N_QUERIES, device=None,
+               cfg_dict: Optional[dict] = None,
+               sizes: tuple = (N_DP_DOCS, N_DP_IMAGES, N_DP_DUPS, 224),
+               scan: tuple = (N_SCAN, 512)) -> dict:
+    """Phase 12: the data axis (``dewi_tpu_torch.parallel``) on one card.
+    Returns the stage-1 kernels' launches of 12a and of every rank of 12b.
+    ``device``, ``cfg_dict`` and the sizes let a CPU rehearsal shrink it."""
+    dev = device or "cuda"
+    t0 = time.perf_counter()
+    data = mesh_bench_data(n_docs, n_queries, dev)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        exact, launches = mesh_world_of_one(data, f"{tmp}/rendezvous_12a", dev, card)
+        launches.update(mesh_sharded_search(data, exact, Path(tmp), device, card))
+    del data
+    mesh_signals(cfg_dict or {}, sizes, scan, device, card)
+    log(f"mesh phase: {time.perf_counter() - t0:.3f} s")
+    return dict(launches)
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2170,6 +2568,8 @@ def main() -> int:
     for name, n in phase_cli(card).items():
         launches[name] += n
     phase_training(card)
+    for name, n in phase_mesh(card).items():
+        launches[name] += n
 
     line = []
     for name, rec in kernels.items():

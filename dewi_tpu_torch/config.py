@@ -4,9 +4,8 @@ The same sections, field names and defaults, ``from_dict``/``to_dict`` with
 unknown-key filtering, a YAML round trip and the presets, so a config file
 written for either package configures the other.  PyYAML is imported only
 by ``from_yaml``/``to_yaml``: ``from_dict`` needs nothing beyond the
-standard library.  ``mesh`` stays for file compatibility; the port's
-pipeline refuses ``mesh.data_parallel_signals: true`` until multi-device
-execution is ported.
+standard library.  ``mesh.data_parallel_signals: true`` makes the
+pipeline build a data-parallel mesh over the process group's ranks.
 """
 
 from __future__ import annotations
@@ -175,15 +174,14 @@ class EvalConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh layout.  ``dtype`` is honoured (bf16 index storage); the
-    multi-device fields wait for the port's multi-device slice."""
+    """Device mesh layout over the process group's ranks (one per device)."""
 
-    data: int = -1   # -1: all remaining devices
+    data: int = -1   # -1: all remaining ranks
     model: int = 1
     dtype: str = "float32"  # index storage dtype: "float32" | "bfloat16"
     # Run the signal-extraction estimator forwards (LM, MAE, CLIP towers)
-    # data-parallel over the mesh: params replicate, batches shard over the
-    # 'data' axis.  The port's DewiPipeline refuses it (not ported yet).
+    # data-parallel over the mesh: weights replicate, batches shard over the
+    # 'data' axis (parallel/signals.py).
     data_parallel_signals: bool = False
 
 

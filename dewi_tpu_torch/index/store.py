@@ -1,8 +1,7 @@
 """Struct-of-arrays document store with power-of-two capacity growth.
 
-Counterpart of ``dewi_tpu/index/store.py`` (without its ``sharding``, which
-belongs to multi-device search).  A host numpy mirror holds the raw rows;
-``device_arrays()`` gives the cached device tensors
+Counterpart of ``dewi_tpu/index/store.py``.  A host numpy mirror holds the
+raw rows; ``device_arrays()`` gives the cached device tensors
 
 * ``embeddings [cap, D]`` -- L2-normalized on the device when cosine, then
   cast to ``dtype`` (float32 or bfloat16),
@@ -18,6 +17,13 @@ padded, normalized and cast there, the host mirror is fetched only when an
 accessor or ``save`` needs it, and documents added meanwhile are buffered
 and merged on the device.  The mirror then holds the device's rows, which
 for a cosine store are the normalized ones.
+
+With a data ``sharding`` (``parallel.data_sharding``), the device holds only
+this rank's contiguous block of rows, ``[r*cap/n, (r+1)*cap/n)`` of the
+capacity, and ``device_arrays()`` returns that block with the *global*
+``n_valid``; the whole corpus is never put on one device.  A sharded store
+that was attached on the device holds only its block: the host accessors
+and buffered adds then raise.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ class DocStore:
     def __init__(self, dim: int, space: str = "cosine",
                  capacity: int = MIN_CAPACITY,
                  dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, sharding: Optional[Any] = None) -> None:
         if space not in ("cosine", "l2"):
             raise ValueError(f"space must be 'cosine' or 'l2', got {space!r}")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -72,6 +78,34 @@ class DocStore:
         # corpus to the host for every add would cost a corpus-sized copy.
         self._pending_emb: List[np.ndarray] = []
         self._pending_pay: List[np.ndarray] = []
+        self._sharding = sharding
+        self._device_cap = 0  # capacity of a corpus attached on the device
+
+    @property
+    def sharding(self) -> Optional[Any]:
+        return self._sharding
+
+    @sharding.setter
+    def sharding(self, value: Optional[Any]) -> None:
+        """A new placement drops the cached device arrays; they are placed
+        under it at the next ``device_arrays()``."""
+        if value is self._sharding:
+            return
+        if self._device is not None:
+            self._sync_host()  # keeps a corpus attached on the device
+            self._device = None
+            self._dirty = True
+        self._sharding = value
+
+    def _shard_range(self, cap: int) -> Tuple[int, int]:
+        """Rows ``[lo, hi)`` of the capacity that this rank's device holds."""
+        if self._sharding is None:
+            return 0, cap
+        mesh = self._sharding.mesh
+        if cap % mesh.n_data:
+            raise ValueError(f"capacity {cap} does not divide over {mesh.n_data} data shards")
+        per = cap // mesh.n_data
+        return mesh.data_index * per, (mesh.data_index + 1) * per
 
     # ---- introspection ---------------------------------------------------
 
@@ -81,7 +115,7 @@ class DocStore:
     @property
     def capacity(self) -> int:
         if self._host_stale and self._device is not None:
-            return int(self._device[0].shape[0])
+            return self._device_cap
         return self._emb.shape[0]
 
     @property
@@ -157,21 +191,29 @@ class DocStore:
         copied over): they are padded to capacity, normalized and cast on
         the device, and nothing passes through host memory.  Replaces the
         store's contents, adds buffered since an earlier attachment
-        included.
+        included.  Under a data sharding only this rank's block of rows is
+        copied (a numpy array is sliced before it is uploaded).
         """
-        emb = self._on_device(embeddings, "embeddings")
-        pay = self._on_device(payloads, "payloads")
-        if emb.dim() != 2 or emb.shape[1] != self.dim:
-            raise ValueError(f"Expected [N, {self.dim}] embeddings, got {tuple(emb.shape)}")
-        n = emb.shape[0]
-        if len(doc_ids) != n or tuple(pay.shape) != (n, len(PAYLOAD_FIELDS)):
+        if not isinstance(embeddings, torch.Tensor):
+            embeddings = np.asarray(embeddings, dtype=np.float32)
+        if not isinstance(payloads, torch.Tensor):
+            payloads = np.asarray(payloads, dtype=np.float32)
+        if len(embeddings.shape) != 2 or embeddings.shape[1] != self.dim:
+            raise ValueError(f"Expected [N, {self.dim}] embeddings, got {tuple(embeddings.shape)}")
+        n = int(embeddings.shape[0])
+        if len(doc_ids) != n or tuple(payloads.shape) != (n, len(PAYLOAD_FIELDS)):
             raise ValueError("doc_ids / embeddings / payloads length mismatch")
         cap = _next_capacity(n)
-        emb_c = torch.zeros((cap, self.dim), dtype=torch.float32, device=self.device)
-        pay_c = torch.zeros((cap, len(PAYLOAD_FIELDS)), dtype=torch.float32,
+        lo, hi = self._shard_range(cap)
+        m = max(0, min(hi, n) - lo)
+        emb = self._on_device(embeddings[lo:lo + m], "embeddings")
+        pay = self._on_device(payloads[lo:lo + m], "payloads")
+        emb_c = torch.zeros((hi - lo, self.dim), dtype=torch.float32, device=self.device)
+        pay_c = torch.zeros((hi - lo, len(PAYLOAD_FIELDS)), dtype=torch.float32,
                             device=self.device)
-        emb_c[:n] = emb
-        pay_c[:n] = pay
+        emb_c[:m] = emb
+        pay_c[:m] = pay
+        self._device_cap = cap
         self._ids = [str(d) for d in doc_ids]
         self._id_to_idx = {d: i for i, d in enumerate(self._ids)}
         self._live = {}
@@ -204,6 +246,7 @@ class DocStore:
         adds that are still buffered."""
         if not self._host_stale:
             return
+        self._refuse_sharded_attached("reading the host mirror")
         emb, _, pay, n_dev = self._device
         self._emb = emb.to(torch.float32).cpu().numpy()
         self._pay = pay.cpu().numpy()
@@ -277,9 +320,16 @@ class DocStore:
 
     # ---- device sync ---------------------------------------------------------
 
+    def _refuse_sharded_attached(self, what: str) -> None:
+        if self._sharding is not None and self._sharding.mesh.n_data > 1:
+            raise NotImplementedError(
+                f"{what}: this store was attached on the device under a data "
+                "sharding and holds only this rank's rows")
+
     def _merge_pending_on_device(self) -> None:
         """Append the buffered adds to the device arrays: only the new rows
         cross from the host."""
+        self._refuse_sharded_attached("adding documents")
         emb_d, sqn_d, pay_d, n_old = self._device
         total = len(self._ids)
         cap = _next_capacity(total)
@@ -294,6 +344,7 @@ class DocStore:
         sqn_d[n_old:total] = new_sqn
         pay_d[n_old:total] = torch.from_numpy(np.stack(self._pending_pay)).to(self.device)
         self._device = (emb_d, sqn_d, pay_d, total)
+        self._device_cap = cap
         self._pending_emb, self._pending_pay = [], []
 
     def _flush_live(self) -> None:
@@ -308,7 +359,8 @@ class DocStore:
         """(embeddings, sqnorms, payloads, n_valid), cached until mutated.
 
         Rows are normalized on the device (cosine), cast to ``dtype``, and
-        the squared norms are taken from the cast rows.
+        the squared norms are taken from the cast rows.  Under a data
+        sharding: this rank's rows only, with the global ``n_valid``.
         """
         self._flush_live()
         if self._host_stale:
@@ -317,8 +369,10 @@ class DocStore:
             return self._device
         if self._device is not None and not self._dirty:
             return self._device
-        emb, sqn = self._prepare_rows(torch.from_numpy(self._emb).to(self.device, copy=True))
-        pay = torch.from_numpy(self._pay).to(self.device, copy=True)
+        lo, hi = self._shard_range(self._emb.shape[0])
+        emb, sqn = self._prepare_rows(
+            torch.from_numpy(self._emb[lo:hi]).to(self.device, copy=True))
+        pay = torch.from_numpy(self._pay[lo:hi]).to(self.device, copy=True)
         self._device = (emb, sqn, pay, len(self))
         self._dirty = False
         return self._device

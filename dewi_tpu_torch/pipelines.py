@@ -15,9 +15,14 @@ and results:
   encoder's provenance (``cross_modal``, ``mixed`` or ``external``).
 
 ``DewiPipeline(device=None)`` runs on the card and raises without one; the
-device goes to every estimator, the scorer and the index.  ``mesh=``, or
-``mesh.data_parallel_signals: true`` in the config, raises: the
-multi-device layers are not ported yet.
+device goes to every estimator, the scorer and the index.  Under ``mesh=``
+(or ``mesh.data_parallel_signals: true`` in the config, which builds one
+over the process group's ranks) the LM, MAE and CLIP forwards run
+data-parallel and the redundancy scan splits its rows over the data axis;
+the redundancy stage and the robust-statistics fit see the gathered
+signals, so every rank ends with the same signals and scores as one
+device would.  The index handoff and every file write happen on rank 0,
+while the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from .config import DewiConfig
 from .types import SIGNAL_FIELDS, Payload, Weights
-from .utils.device import DeviceLike, refuse_multi_device, resolve_device
+from .utils.device import DeviceLike
 
 logger = logging.getLogger(__name__)
 
@@ -98,8 +103,9 @@ class _StageCheckpoint:
     so checkpoints cross between the packages both ways."""
 
     def __init__(self, directory: Optional[PathLike],
-                 documents: Any) -> None:
+                 documents: Any, mesh: Any = None) -> None:
         self.dir = Path(directory) if directory else None
+        self.mesh = mesh  # under a mesh, rank 0 writes
         if isinstance(documents, int):  # legacy: count only, no digest
             self.n_docs = documents
             self.digest = ""
@@ -167,8 +173,18 @@ class _StageCheckpoint:
     def save(self, stage: str, **arrays: np.ndarray) -> None:
         if not self.dir:
             return
-        np.savez(self.dir / f"{stage}.npz", n_docs=self.n_docs,
-                 digest=self.digest, **arrays)
+        _on_rank0(self.mesh, lambda: np.savez(self.dir / f"{stage}.npz", n_docs=self.n_docs,
+                                              digest=self.digest, **arrays))
+
+
+def _on_rank0(mesh: Any, fn: Any) -> Any:
+    """``fn()`` on rank 0 only (its value there, ``None`` elsewhere); under a
+    mesh every rank then waits at a barrier, so no rank reads a file before
+    it is whole."""
+    out = fn() if mesh is None or mesh.rank == 0 else None
+    if mesh is not None:
+        mesh.barrier()
+    return out
 
 
 class _CorpusImages:
@@ -227,19 +243,24 @@ class _CorpusImages:
 
 
 class DewiPipeline:
-    """Signals + scoring + index orchestration on one device."""
+    """Signals + scoring + index orchestration on one device or a mesh."""
 
     def __init__(self, config: Optional[DewiConfig] = None,
                  nsfw_fn: Any = None, mesh: Any = None,
                  device: DeviceLike = None) -> None:
-        """``device=None`` runs on the card (raising without one).  ``mesh``
-        and ``config.mesh.data_parallel_signals: true`` raise
-        ``NotImplementedError``: data-parallel estimators belong to the
-        multi-device slice."""
+        """``device=None`` runs on the card (raising without one), or on the
+        mesh's device.  ``mesh`` (or ``config.mesh.data_parallel_signals:
+        true``, which builds one: ``mesh.data: -1`` takes every rank the
+        model axis leaves) runs the estimator forwards data-parallel."""
+        from .parallel.mesh import check_mesh, make_mesh, mesh_device
+
         self.config = config or DewiConfig()
-        refuse_multi_device(mesh=mesh,
-                            data_parallel_signals=self.config.mesh.data_parallel_signals or None)
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh) if mesh is not None else None
+        if self.mesh is None and self.config.mesh.data_parallel_signals:
+            m = self.config.mesh
+            self.mesh = make_mesh(n_data=m.data if m.data > 0 else None,
+                                  n_model=max(1, int(m.model)), device=device)
+        self.device = mesh_device(self.mesh, device)
         self._nsfw_fn = nsfw_fn
         self._text_entropy = None
         self._image_entropy = None
@@ -269,6 +290,7 @@ class DewiPipeline:
                 domain_checkpoint=c.domain_checkpoint,
                 seed=c.seed,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._text_entropy
 
@@ -287,6 +309,7 @@ class DewiPipeline:
                 checkpoint=c.checkpoint,
                 seed=c.seed,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._image_entropy
 
@@ -304,6 +327,7 @@ class DewiPipeline:
                 seed=c.seed,
                 image_size=getattr(c, "image_size", None),
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._cross_modal
 
@@ -322,6 +346,7 @@ class DewiPipeline:
                 threshold=c.threshold,
                 clip=self._cross_modal,  # share towers when already built
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._redundancy
 
@@ -358,7 +383,7 @@ class DewiPipeline:
         """
         if not documents:
             return []
-        ckpt = _StageCheckpoint(checkpoint_dir, documents)
+        ckpt = _StageCheckpoint(checkpoint_dir, documents, self.mesh)
 
         def log_stage(name: str) -> None:
             if progress:
@@ -755,7 +780,7 @@ class DewiPipeline:
         # Redundancy is cross-document: run it globally over all shards so
         # sharding never changes scores.
         self._redundancy_stage(
-            documents, _StageCheckpoint(ckpt_root, documents)
+            documents, _StageCheckpoint(ckpt_root, documents, self.mesh)
         )
         # Global fit+score across every shard in one fused call.
         return self.compute_dewi_scores(documents, weights=weights,
@@ -833,6 +858,11 @@ class DewiPipeline:
         """
         from .io.device_images import device_images_or_none
 
+        if self.mesh is not None and self.mesh.n_data > 1:
+            # Residency would put the whole corpus on every rank's device;
+            # under a data-parallel mesh each rank puts its slice of every
+            # host batch there instead.
+            return None
         imgs = corpus.images
         src, pos = None, None
         if isinstance(imgs, np.ndarray) and imgs.ndim == 4:
@@ -1350,16 +1380,19 @@ class DewiPipeline:
             filled_parent[a:b] = sub_filled
             any_clip = any_clip or bool(np.asarray(sub_filled).any())
             if ck is not None:
-                tmp = ck.with_suffix(".tmp.npz")
-                np.savez(
-                    tmp, digest=digest, signals=corpus.signals[a:b],
-                    embeddings=(
-                        sub.embeddings if sub.embeddings is not None
-                        else np.zeros((0, 0), np.float32)
-                    ),
-                    clip_filled=np.asarray(sub_filled, bool),
-                )
-                tmp.replace(ck)
+                def write(ck: Path = ck) -> None:
+                    tmp = ck.with_suffix(".tmp.npz")
+                    np.savez(
+                        tmp, digest=digest, signals=corpus.signals[a:b],
+                        embeddings=(
+                            sub.embeddings if sub.embeddings is not None
+                            else np.zeros((0, 0), np.float32)
+                        ),
+                        clip_filled=np.asarray(sub_filled, bool),
+                    )
+                    tmp.replace(ck)
+
+                _on_rank0(self.mesh, write)
         corpus.embeddings = emb_parent
         corpus.clip_filled_mask = filled_parent
         corpus.clip_embedded = bool(
@@ -1374,10 +1407,13 @@ class DewiPipeline:
     def build_index_corpus(self, corpus: Any,
                            **index_kwargs: Any) -> Any:
         """``Corpus`` -> built :class:`DewiIndex`: two array ops, no per-doc
-        Python."""
+        Python.  Under a mesh: rank 0's index, ``None`` on the other ranks."""
         if len(corpus) == 0:
             raise ValueError("No documents to index")
         self.ensure_embeddings_corpus(corpus)
+        return _on_rank0(self.mesh, lambda: self._index_corpus(corpus, **index_kwargs))
+
+    def _index_corpus(self, corpus: Any, **index_kwargs: Any) -> Any:
         index = self._make_index(dim=int(corpus.embeddings.shape[1]),
                                  **index_kwargs)
         filled = getattr(corpus, "clip_filled_mask", None)
@@ -1443,11 +1479,14 @@ class DewiPipeline:
 
     def build_index(self, documents: List[Document],
                     **index_kwargs: Any) -> Any:
-        """Documents -> built :class:`DewiIndex` (embeddings + payloads)."""
-
+        """Documents -> built :class:`DewiIndex` (embeddings + payloads).
+        Under a mesh: rank 0's index, ``None`` on the other ranks."""
         if not documents:
             raise ValueError("No documents to index")
         self.ensure_embeddings(documents)
+        return _on_rank0(self.mesh, lambda: self._index_documents(documents, **index_kwargs))
+
+    def _index_documents(self, documents: List[Document], **index_kwargs: Any) -> Any:
         n_clip = sum(
             1 for d in documents if d.doc_id in self._clip_embedded_ids
         )

@@ -4,6 +4,10 @@ Counterpart of ``dewi_tpu/signals/cross_modal.py``: both towers embed a
 batch each, and a pair's score is the cosine of its two L2-normalized
 embeddings (the diagonal of the text x image similarity matrix).  The text
 tower is also the query encoder of search (``serve.SearchServer``).
+
+Under a ``mesh`` both towers run data-parallel (``parallel.DataParallel``):
+each rank embeds its slice of every padded batch and the embeddings are
+gathered back into the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from ..io.images import iter_corpus_batches
 from ..models.clip import CLIPConfig
 from ..models.import_hf import sidecar_config
 from ..models.registry import clip_config, init_clip, maybe_load
-from ..utils.device import DeviceLike, refuse_multi_device, resolve_device
+from ..parallel.signals import DataParallel
+from ..utils.device import DeviceLike
 from .image_entropy import ImageLike, normalize_images
 from .tokenizer import get_tokenizer
 
@@ -33,7 +38,9 @@ class CrossModalResult:
 class CrossModalDependency:
     """CLIP text-image cosine similarity as an InfoNCE MI lower-bound proxy.
 
-    ``device=None`` runs on the card; ``mesh=`` raises (multi-device slice).
+    ``device=None`` runs on the card, or on the mesh's device under
+    ``mesh=`` (data-parallel towers, the batch size rounded up to a
+    multiple of the data axis).
     """
 
     def __init__(
@@ -47,9 +54,9 @@ class CrossModalDependency:
         image_size: Optional[int] = None,
         mesh: Any = None,
     ) -> None:
-        refuse_multi_device(mesh=mesh)
-        self.device = resolve_device(device)
-        self.batch_size = int(batch_size)
+        self._dp = DataParallel(mesh, device)
+        self.device = self._dp.device
+        self.batch_size = self._dp.round_batch(batch_size)
         self.tokenizer = get_tokenizer(tokenizer)
         side = sidecar_config(checkpoint)
         if side is not None:
@@ -80,6 +87,7 @@ class CrossModalDependency:
                 over["image_size"] = int(image_size)
             self.cfg = clip_config(model_name, vocab_size=self.tokenizer.vocab_size, **over)
         self.model = maybe_load(init_clip(self.cfg, seed=seed, device=self.device), checkpoint)
+        self._dp.replicate(self.model)
 
     # -- encoders (shared with search) ------------------------------------------
 
@@ -96,8 +104,8 @@ class CrossModalDependency:
             ids = np.full((bs, tl), self.tokenizer.pad_id, np.int32)
             mask = np.zeros((bs, tl), np.float32)
             ids[:len(chunk)], mask[:len(chunk)] = self.tokenizer.encode_batch(chunk, tl, pad_to=tl)
-            e = self.model.encode_text(torch.from_numpy(ids).to(self.device).long(),
-                                       torch.from_numpy(mask).to(self.device))
+            e = self._dp.gather(self.model.encode_text(self._dp.put(ids).long(),
+                                                       self._dp.put(mask)))
             out.append(e[:len(chunk)])
             if progress is not None:
                 progress(len(chunk))
@@ -112,8 +120,8 @@ class CrossModalDependency:
         bs = self.batch_size
         out: List[torch.Tensor] = []
         for chunk, pad in iter_corpus_batches(images, self.cfg.image_size, bs):
-            x = normalize_images(torch.as_tensor(chunk).to(self.device))
-            out.append(self.model.encode_image(x)[:bs - pad])
+            e = self._dp.gather(self.model.encode_image(normalize_images(self._dp.put(chunk))))
+            out.append(e[:bs - pad])
             if progress is not None:
                 progress(bs - pad)
         if not out:
@@ -146,7 +154,7 @@ class CrossModalDependency:
         if not len(texts):
             return []
         if batch_size is not None:
-            self.batch_size = int(batch_size)
+            self.batch_size = self._dp.round_batch(batch_size)
         return [CrossModalResult(float(s), float(s), float(s))
                 for s in self.batch_diagonal(texts, images, progress=progress)]
 

@@ -11,12 +11,18 @@ The masking noise of batch ``b`` comes from a generator seeded from
 its key, so a value does not depend on how batches are grouped.  PyTorch's
 random stream is not JAX's: for the same seed the masks, and so the values,
 differ from the reference's.
+
+Under a ``mesh`` each batch runs data-parallel (``parallel.DataParallel``):
+the masking noise is drawn for the whole padded batch, each rank runs the
+MAE on its slice of the rows and noise, and the per-patch losses and masks
+are gathered back before the aggregates, so a document's mask and value do
+not depend on the number of ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +32,8 @@ from ..models.import_hf import sidecar_config
 from ..models.mae import MAEConfig, pixel_entropy_proxy, pixel_patch_proxy
 from ..models.registry import init_mae, mae_config, maybe_load
 from ..ops.robust import masked_mean_and_quantiles
-from ..utils.device import DeviceLike, refuse_multi_device, resolve_device
+from ..parallel.signals import DataParallel
+from ..utils.device import DeviceLike
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -84,7 +91,8 @@ class ImageEntropyEstimator:
     one), a pre-decoded ``[N, S, S, 3]`` ndarray or tensor at the
     estimator's resolution, or a :class:`DeviceImages` corpus.  Pass
     ``model_name="pixel"`` for the variance-proxy fallback.  ``device=None``
-    runs on the card; ``mesh=`` raises (multi-device slice).
+    runs on the card, or on the mesh's device under ``mesh=`` (data-parallel
+    batches, the batch size rounded up to a multiple of the data axis).
     """
 
     def __init__(
@@ -100,9 +108,9 @@ class ImageEntropyEstimator:
         mesh: Any = None,
         **_: object,
     ) -> None:
-        refuse_multi_device(mesh=mesh)
-        self.device = resolve_device(device)
-        self.batch_size = int(batch_size)
+        self._dp = DataParallel(mesh, device)
+        self.device = self._dp.device
+        self.batch_size = self._dp.round_batch(batch_size)
         self.mask_ratio = float(mask_ratio)
         if model_name in ("pixel", "none", "proxy"):
             self.model = None
@@ -123,16 +131,23 @@ class ImageEntropyEstimator:
             self.cfg = mae_config(model_name, **over)
         self.image_size = self.cfg.image_size
         self.model = maybe_load(init_mae(self.cfg, seed=seed, device=self.device), checkpoint)
+        self._dp.replicate(self.model)
 
-    def _batches(self, images: Sequence[ImageLike], bs: int) -> Iterator[Tuple[torch.Tensor, int]]:
-        """``(batch [bs, S, S, 3] on the device, pad)``."""
-        for chunk, pad in iter_corpus_batches(images, self.image_size, bs):
-            yield torch.as_tensor(chunk).to(self.device), pad
+    def _batch_noise(self, seed: int, offset: int, rows: int) -> torch.Tensor:
+        """The masking noise ``[rows, P]`` of the batch that starts at image
+        ``offset``: the draw ``patch_losses`` makes from that generator."""
+        return torch.rand((rows, self.cfg.num_patches),
+                          generator=batch_generator(seed, offset, self.device),
+                          device=self.device)
 
     @torch.no_grad()
-    def _patch_losses(self, chunk: torch.Tensor, seed: int, offset: int) -> tuple:
-        return self.model.patch_losses(normalize_images(chunk),
-                                       generator=batch_generator(seed, offset, self.device))
+    def _patch_losses(self, chunk: Any, seed: int, offset: int) -> tuple:
+        """Per-patch losses and masks of the whole batch; under a mesh the
+        noise of the whole batch is drawn, then sliced with the rows."""
+        noise = self._batch_noise(seed, offset, chunk.shape[0])
+        per_patch, mask = self.model.patch_losses(normalize_images(self._dp.put(chunk)),
+                                                  noise=self._dp.put(noise))
+        return self._dp.gather(per_patch), self._dp.gather(mask)
 
     # -- public API -----------------------------------------------------------
 
@@ -145,10 +160,11 @@ class ImageEntropyEstimator:
                       batch_size: Optional[int] = None) -> List[float]:
         if not len(images):
             return []
-        bs = int(batch_size or self.batch_size)
+        bs = self._dp.round_batch(batch_size or self.batch_size)
         out: List[torch.Tensor] = []
-        for b, (chunk, pad) in enumerate(self._batches(images, bs)):
+        for b, (chunk, pad) in enumerate(iter_corpus_batches(images, self.image_size, bs)):
             if self.model is None:
+                chunk = torch.as_tensor(chunk).to(self.device)
                 out.append(pixel_entropy_proxy(to_f32_batch(chunk))[:bs - pad])
                 continue
             per_patch, mask = self._patch_losses(chunk, seed, b * bs)
@@ -167,12 +183,13 @@ class ImageEntropyEstimator:
         copy at the end."""
         if not len(images):
             return np.zeros(0, np.float32), np.zeros(0, np.float32)
-        bs = int(batch_size or self.batch_size)
+        bs = self._dp.round_batch(batch_size or self.batch_size)
         q90 = torch.tensor([0.9], dtype=torch.float32, device=self.device)
         means: List[torch.Tensor] = []
         q90s: List[torch.Tensor] = []
-        for b, (chunk, pad) in enumerate(self._batches(images, bs)):
+        for b, (chunk, pad) in enumerate(iter_corpus_batches(images, self.image_size, bs)):
             if self.model is None:
+                chunk = torch.as_tensor(chunk).to(self.device)
                 per_patch = pixel_patch_proxy(to_f32_batch(chunk))
                 mean, q = per_patch.mean(dim=1), torch.quantile(per_patch, 0.9, dim=1)
             else:

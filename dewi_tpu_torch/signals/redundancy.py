@@ -27,7 +27,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils.device import DeviceLike, refuse_multi_device, resolve_device
+from ..parallel.mesh import check_mesh, mesh_device
+from ..utils.device import DeviceLike, resolve_device
 
 # ---------------------------------------------------------------------------
 # Embedding-space redundancy (device path)
@@ -45,18 +46,22 @@ def _normalized(embeddings: Any, device: DeviceLike) -> torch.Tensor:
     return emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
 
 
-def _scan(emb: torch.Tensor, block: int, chunk: int, reduce: Any, init: Any,
-          finish: Any) -> np.ndarray:
-    """Every row block of ``emb`` against the whole corpus in ``chunk``-column
-    tiles: ``state = reduce(state, sim)`` per tile, from ``init(block)``,
-    with a row's own column at -inf; ``finish(state)`` gives the block's
-    values.  The last block is clamped to end at N (its overlapping rows are
-    recomputed, with the same values), and the last tile ends at N, so no
-    padded column exists to mask."""
+def _block_starts(n: int, block: int) -> List[int]:
+    """First rows of the scan's row blocks: the last one is clamped to end
+    at N (its overlapping rows are recomputed, with the same values)."""
+    return [min(start, n - block) for start in range(0, n, block)]
+
+
+def _scan_blocks(emb: torch.Tensor, starts: Sequence[int], block: int, chunk: int,
+                 reduce: Any, init: Any, finish: Any) -> torch.Tensor:
+    """``[len(starts), block]``: the row blocks at ``starts`` against the
+    whole corpus in ``chunk``-column tiles, ``state = reduce(state, sim)``
+    per tile from ``init(block)``, with a row's own column at -inf;
+    ``finish(state)`` gives a block's values.  The last tile ends at N, so
+    no padded column exists to mask."""
     n = emb.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=emb.device)
-    for start in range(0, n, block):
-        s = min(start, n - block)
+    out = torch.empty((len(starts), block), dtype=torch.float32, device=emb.device)
+    for j, s in enumerate(starts):
         rows = emb[s:s + block]
         state = init(block)
         for c0 in range(0, n, chunk):
@@ -64,8 +69,25 @@ def _scan(emb: torch.Tensor, block: int, chunk: int, reduce: Any, init: Any,
             # Row i's own column s + i sits on the diagonal at offset s - c0.
             torch.diagonal(sim, offset=s - c0).fill_(-torch.inf)
             state = reduce(state, sim)
-        out[s:s + block] = finish(state)
+        out[j] = finish(state)
+    return out
+
+
+def _place(n: int, starts: Sequence[int], vals: torch.Tensor) -> np.ndarray:
+    """The blocks' values written at their rows in order (a later block
+    overwrites the rows it shares with the one before)."""
+    out = torch.empty(n, dtype=torch.float32, device=vals.device)
+    for s, v in zip(starts, vals):
+        out[s:s + v.shape[0]] = v
     return out.cpu().numpy()
+
+
+def _scan(emb: torch.Tensor, block: int, chunk: int, reduce: Any, init: Any,
+          finish: Any) -> np.ndarray:
+    """Every row block of ``emb`` scanned (:func:`_scan_blocks`), as ``[N]``."""
+    starts = _block_starts(emb.shape[0], block)
+    return _place(emb.shape[0], starts,
+                  _scan_blocks(emb, starts, block, chunk, reduce, init, finish))
 
 
 def _sizes(n: int, block: int, chunk: int) -> tuple:
@@ -85,11 +107,14 @@ def max_offdiag_similarity(embeddings: Any, block: int = 4096, chunk: int = 6553
     if n < 2:
         return np.zeros(n, dtype=np.float32)
     block, chunk = _sizes(n, block, chunk)
-    return _scan(
-        emb, block, chunk,
-        reduce=lambda best, sim: torch.maximum(best, sim.amax(dim=1)),
-        init=lambda b: torch.full((b,), -torch.inf, device=emb.device),
-        finish=lambda best: best.clamp(-1.0, 1.0))
+    return _scan(emb, block, chunk, *_running_max(emb.device))
+
+
+def _running_max(device: torch.device) -> tuple:
+    """``(reduce, init, finish)`` of the max off-diagonal scan."""
+    return (lambda best, sim: torch.maximum(best, sim.amax(dim=1)),
+            lambda b: torch.full((b,), -torch.inf, device=device),
+            lambda best: best.clamp(-1.0, 1.0))
 
 
 def topk_density(embeddings: Any, top: int = 8, block: int = 4096, chunk: int = 65536,
@@ -121,9 +146,29 @@ def topk_density(embeddings: Any, top: int = 8, block: int = 4096, chunk: int = 
 
 def max_offdiag_similarity_sharded(embeddings: Any, mesh: Any, block: int = 4096,
                                    chunk: int = 65536) -> np.ndarray:
-    """The mesh-sharded scan of the reference: multi-device slice."""
-    refuse_multi_device(mesh=mesh)
-    return max_offdiag_similarity(embeddings, block=block, chunk=chunk)
+    """Mesh-sharded :func:`max_offdiag_similarity` (the O(N^2) stage).
+
+    Every rank holds the whole normalized corpus (on the mesh's device) and
+    scans its contiguous share of the single-device scan's row blocks
+    against all columns, so the N^2 products split evenly over the data
+    axis with no collective on the compute path; one all-gather of the
+    block maxima gives every rank the ``[N]`` result.  The blocks and
+    tiles are the single-device scan's, so the values are the same.
+    """
+    mesh = check_mesh(mesh)
+    emb = _normalized(embeddings, mesh.device)
+    n = emb.shape[0]
+    if n < 2:
+        return np.zeros(n, dtype=np.float32)
+    block, chunk = _sizes(n, block, chunk)
+    starts = _block_starts(n, block)
+    per = -(-len(starts) // mesh.n_data)
+    mine = starts[mesh.data_index * per:(mesh.data_index + 1) * per]
+    vals = torch.zeros((per, block), dtype=torch.float32, device=emb.device)
+    if mine:
+        vals[:len(mine)] = _scan_blocks(emb, mine, block, chunk, *_running_max(emb.device))
+    vals = mesh.all_gather(vals)  # [n_data * per, block], rank order
+    return _place(n, starts, vals[:len(starts)])
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +328,9 @@ class RedundancyEstimator:
     """Per-document redundancy: embedding scan, hash modes, clusters.
 
     ``device=None`` runs the embedding scans on the card (raising without
-    one); ``mesh=`` raises (multi-device slice).
+    one), or on the mesh's device under ``mesh=``; a mesh of more than one
+    data rank splits the max off-diagonal scan over them
+    (:func:`max_offdiag_similarity_sharded`).
     """
 
     def __init__(
@@ -300,8 +347,8 @@ class RedundancyEstimator:
         seed: int = 0,
         mesh: Any = None,
     ) -> None:
-        refuse_multi_device(mesh=mesh)
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh) if mesh is not None else None
+        self.device = mesh_device(self.mesh, device)
         self.text_sim = text_sim
         self.image_sim = image_sim
         self.cross_modal_density = bool(cross_modal_density)
@@ -339,7 +386,10 @@ class RedundancyEstimator:
         if emb is None:
             raise ValueError("Call fit(embeddings) or pass embeddings")
         if self._scores is None or embeddings is not None:
-            scores = max_offdiag_similarity(emb, block=self.block_size, device=self.device)
+            if self.mesh is not None and self.mesh.n_data > 1:
+                scores = max_offdiag_similarity_sharded(emb, self.mesh, block=self.block_size)
+            else:
+                scores = max_offdiag_similarity(emb, block=self.block_size, device=self.device)
             if embeddings is None:
                 self._scores = scores
             return scores
@@ -424,6 +474,7 @@ class RedundancyEstimator:
 __all__ = [
     "RedundancyEstimator",
     "max_offdiag_similarity",
+    "max_offdiag_similarity_sharded",
     "topk_density",
     "minhash_signatures",
     "simhash_bits",

@@ -7,6 +7,12 @@ mean/quantiles per batch; documents longer than the model's context are
 scored over overlapping windows; domain-relative mode subtracts a second
 LM's NLL.  ``batch_compute_stats`` keeps every batch's aggregates on the
 device and copies them to the host once, at the end.
+
+Under a ``mesh`` each batch runs data-parallel (``parallel.DataParallel``):
+every rank tokenizes and buckets the whole batch, runs the forward on its
+slice of the rows, and the per-token NLL is gathered back into the whole
+batch before the aggregates, so every rank ends with every document's
+values.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from ..models.lm import token_nll
 from ..models.registry import init_lm, lm_config, maybe_load
 from ..models.transformer import TransformerConfig
 from ..ops.robust import masked_mean_and_quantiles
-from ..utils.device import DeviceLike, refuse_multi_device, resolve_device
+from ..parallel.signals import DataParallel
+from ..utils.device import DeviceLike, refuse_multi_device
 from .tokenizer import bucket_length, get_tokenizer
 
 
@@ -58,9 +65,11 @@ def _result_from_stream(arr: np.ndarray) -> TextEntropyResult:
 class TextEntropyEstimator:
     """LM token-NLL estimator with bucketed batch inference.
 
-    ``device=None`` runs on the card (raising without one).  ``mesh=``,
-    ``ring_mesh=`` and ``chip_len=`` belong to the multi-device slice and
-    raise ``NotImplementedError``; the context of one forward is the model's
+    ``device=None`` runs on the card (raising without one), or on the
+    mesh's device under ``mesh=``, where the batch size rounds up to a
+    multiple of the data axis and the weights are the first rank's.
+    ``ring_mesh=`` and ``chip_len=`` belong to the model axis and raise
+    ``NotImplementedError``; the context of one forward is the model's
     ``max_len``.
     """
 
@@ -80,10 +89,11 @@ class TextEntropyEstimator:
         chip_len: Optional[int] = None,
         mesh: Any = None,
     ) -> None:
-        refuse_multi_device(mesh=mesh, ring_mesh=ring_mesh, chip_len=chip_len)
-        self.device = resolve_device(device)
+        refuse_multi_device(ring_mesh=ring_mesh, chip_len=chip_len)
+        self._dp = DataParallel(mesh, device)
+        self.device = self._dp.device
         self.quantiles = tuple(float(q) for q in quantiles)
-        self.batch_size = int(batch_size)
+        self.batch_size = self._dp.round_batch(batch_size)
         self.tokenizer = get_tokenizer(tokenizer)
         side = sidecar_config(checkpoint)
         if side is not None:
@@ -114,15 +124,18 @@ class TextEntropyEstimator:
             self.domain_model = maybe_load(
                 init_lm(self.domain_cfg, seed=seed + 1, device=self.device),
                 domain_checkpoint)
+        self._dp.replicate(self.model)
+        if self.domain_model is not None:
+            self._dp.replicate(self.domain_model)
         self._qs = torch.tensor(self.quantiles, dtype=torch.float32, device=self.device)
 
     # -- scoring --------------------------------------------------------------
 
     @torch.no_grad()
     def _score(self, ids: np.ndarray, mask: np.ndarray, use_domain: bool) -> tuple:
-        """``(nll, valid, mean, qs)`` of one padded batch, on the device."""
-        ids_t = torch.from_numpy(ids).to(self.device).long()
-        mask_t = torch.from_numpy(mask).to(self.device)
+        """``(nll, valid, mean, qs)`` of one padded batch, on the device
+        (under a mesh: this rank's rows forward, the NLL gathered back)."""
+        ids_t, mask_t = self._dp.put(ids).long(), self._dp.put(mask)
         pad_id = int(self.tokenizer.pad_id)
         if pad_id >= self.cfg.vocab_size:
             # HF adapters pad with an out-of-vocab sentinel (vocab_size), as
@@ -133,6 +146,7 @@ class TextEntropyEstimator:
         if use_domain:
             dnll, _ = token_nll(self.domain_model(ids_t, mask_t), ids_t, mask_t)
             nll = nll - dnll
+        nll, valid = self._dp.gather(nll), self._dp.gather(valid)
         mean, qs = masked_mean_and_quantiles(nll, valid, self._qs)
         return nll, valid, mean, qs
 
@@ -186,7 +200,7 @@ class TextEntropyEstimator:
         """
         if not len(texts):
             return []
-        bs = int(batch_size or self.batch_size)
+        bs = self._dp.round_batch(batch_size or self.batch_size)
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         results: List[Optional[TextEntropyResult]] = [None] * len(texts)
@@ -259,7 +273,7 @@ class TextEntropyEstimator:
         means, q90s, q99s = z, z.copy(), z.copy()
         if not len(texts):
             return means, q90s, q99s
-        bs = int(batch_size or self.batch_size)
+        bs = self._dp.round_batch(batch_size or self.batch_size)
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         for i in long_idx:

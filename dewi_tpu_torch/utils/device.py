@@ -29,13 +29,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def refuse_multi_device(**args: object) -> None:
-    """Raise for the multi-device arguments (``mesh=``, ``ring_mesh=``,
-    ``chip_len=``) that a caller set: they come with the multi-device slice."""
+    """Raise for the model-axis arguments (``ring_mesh=``, ``chip_len=``)
+    that a caller set: ring attention over the mesh's model axis is not
+    ported yet (the data axis, ``mesh=``, is)."""
     given = sorted(name for name, value in args.items() if value is not None)
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: the multi-device execution of the signal "
-            "estimators is not ported yet (ROADMAP.md queue 1 step 12)"
+            f"{', '.join(given)}: the model axis (ring attention over a mesh) "
+            "is not ported yet (ROADMAP.md queue 1 step 12b)"
         )
 
 

@@ -80,33 +80,34 @@ def synthetic_texts(n: int, seed: int, lo: int = 1, hi: int = 500) -> list:
     return [" ".join(w)[:m] for w, m in zip(words, lens)]
 
 
-def synthetic_images(n: int, seed: int, size: int = 224) -> np.ndarray:
-    """``[n, size, size, 3]`` uint8 made on the card: a colour, a smooth
-    random field and pixel noise per image, so that images differ in more
-    than their noise."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def synthetic_images(n: int, seed: int, size: int = 224, device: str = "cuda") -> np.ndarray:
+    """``[n, size, size, 3]`` uint8 made on ``device`` (the card): a colour,
+    a smooth random field and pixel noise per image, so that images differ
+    in more than their noise."""
+    g = torch.Generator(device=device).manual_seed(seed)
     out = np.empty((n, size, size, 3), np.uint8)
     for s in range(0, n, 1024):
         m = min(1024, n - s)
-        base = torch.rand(m, 3, 1, 1, device="cuda", generator=g) * 200 + 20
+        base = torch.rand(m, 3, 1, 1, device=device, generator=g) * 200 + 20
         field = torch.nn.functional.interpolate(
-            torch.rand(m, 3, 7, 7, device="cuda", generator=g) * 120 - 60, size=(size, size),
+            torch.rand(m, 3, 7, 7, device=device, generator=g) * 120 - 60, size=(size, size),
             mode="bilinear", align_corners=False)
-        noise = torch.randn(m, 3, size, size, device="cuda", generator=g) * 20
+        noise = torch.randn(m, 3, size, size, device=device, generator=g) * 20
         img = (base + field + noise).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
         out[s:s + m] = img.cpu().numpy()
     return out
 
 
-def make_corpus(n: int, n_images: int, dup_pairs: int, seed: int) -> tuple:
+def make_corpus(n: int, n_images: int, dup_pairs: int, seed: int, size: int = 224,
+                device: str = "cuda") -> tuple:
     """A ``Corpus`` of ``n`` docs, ``n_images`` of them with an image, and
     ``dup_pairs`` planted pairs; returns ``(corpus, planted doc indices,
-    the dense [n_images, 224, 224, 3] image array)``."""
+    the dense [n_images, size, size, 3] image array)``."""
     from dewi_tpu_torch import Corpus
 
     rng = np.random.default_rng(seed)
     texts = synthetic_texts(n, seed)
-    dense = synthetic_images(n_images, seed + 1)
+    dense = synthetic_images(n_images, seed + 1, size, device)
     img_docs = np.sort(rng.choice(n, n_images, replace=False))
     pick = rng.choice(n_images, 2 * dup_pairs, replace=False)
     src, dst = pick[:dup_pairs], pick[dup_pairs:]

@@ -43,3 +43,13 @@ def test_torch_quickstart_example():
     assert "Search 'northern lights in the atmosphere'" in out.stdout
     assert "Eval: recall@5=" in out.stdout
     assert "DEWI^tau sample (tau=2):" in out.stdout
+
+
+def test_torch_multichip_search_example():
+    """Four gloo ranks on the CPU; the sharded answers equal one device's."""
+    out = _run("torch_multichip_search.py", "4096")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "over 4 gloo ranks on cpu" in out.stdout
+    assert "exact tier: sharded top-10 == single-device top-10 over 4096 docs x 4 shards" \
+        in out.stdout
+    assert "int8 tier: sharded top-10 == single-device top-10" in out.stdout

@@ -54,6 +54,9 @@ def test_import_pulls_in_no_jax():
             "import dewi_tpu_torch.robust, dewi_tpu_torch.utils.profiling; "
             "import dewi_tpu_torch.training, dewi_tpu_torch.training.loops; "
             "import dewi_tpu_torch.models.moe; "
+            "import dewi_tpu_torch.parallel, dewi_tpu_torch.parallel.mesh; "
+            "import dewi_tpu_torch.parallel.runtime, dewi_tpu_torch.parallel.distributed; "
+            "import dewi_tpu_torch.parallel.signals; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{LOAD_FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -94,6 +97,10 @@ def test_new_modules_are_checked():
                       "dewi_tpu_torch/models/moe.py"} | {
         f"examples/torch_{m}.py" for m in ("quickstart", "index_tiers", "columnar_pipeline")}
     assert training_slice <= names
+    parallel_slice = {f"dewi_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "runtime", "distributed", "signals")} | {
+        "examples/torch_multichip_search.py"}
+    assert parallel_slice <= names
 
 
 def test_native_build_stays_in_its_directory(tmp_path):

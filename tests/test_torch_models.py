@@ -383,7 +383,8 @@ def test_seeded_init_follows_flax_distributions():
 
 def test_entry_points_default_to_the_card():
     """Without ``device=`` the models and estimators run on the card, and
-    raise where there is none; the multi-device arguments raise."""
+    raise where there is none; the model-axis arguments raise and ``mesh=``
+    takes only a Mesh."""
     from dewi_tpu_torch.io import DeviceImages
     from dewi_tpu_torch.signals import (CrossModalDependency, ImageEntropyEstimator,
                                         TextEntropyEstimator)
@@ -400,12 +401,13 @@ def test_entry_points_default_to_the_card():
                   lambda: DeviceImages(np.zeros((2, 8, 8, 3), np.uint8))):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
-    with pytest.raises(NotImplementedError, match="step 12"):
+    with pytest.raises(NotImplementedError, match="step 12b"):
         TextEntropyEstimator("tiny", device="cpu", chip_len=32)
     with pytest.raises(NotImplementedError, match="ring_mesh"):
         TextEntropyEstimator("tiny", device="cpu", ring_mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is the data axis (ported): anything but a Mesh is refused.
+    with pytest.raises(TypeError, match="mesh"):
         ImageEntropyEstimator("tiny", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         CrossModalDependency("tiny", device="cpu", mesh=object())
     assert next(treg.init_lm(treg.lm_config("tiny"), device="cpu").parameters()).device.type == "cpu"

@@ -380,11 +380,14 @@ def test_redundancy_modes_match_reference(f32, redundancy, monkeypatch):
 
 
 def test_multi_device_arguments_raise(f32):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``mesh=`` takes a Mesh and nothing else; the config knob builds one
+    over the process group's ranks (without a group: a world of one)."""
+    with pytest.raises(TypeError, match="mesh"):
         DewiPipeline(DewiConfig.from_dict(f32["cfg"]), mesh=object(), device="cpu")
     cfg = _config_dict(f32["ckpt"], mesh={"data_parallel_signals": True})
-    with pytest.raises(NotImplementedError, match="data_parallel_signals"):
-        DewiPipeline(DewiConfig.from_dict(cfg), device="cpu")
+    pipe = DewiPipeline(DewiConfig.from_dict(cfg), device="cpu")
+    assert pipe.mesh is not None and pipe.mesh.shape == {"data": 1, "model": 1}
+    assert DewiPipeline(DewiConfig.from_dict(f32["cfg"]), device="cpu").mesh is None
 
 
 def test_pipeline_defaults_to_the_card(f32):

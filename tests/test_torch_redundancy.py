@@ -185,7 +185,8 @@ def test_cross_modal_similarity_uses_the_clip_towers():
 
 
 def test_multi_device_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``mesh=`` takes a ``dewi_tpu_torch.parallel`` Mesh and nothing else."""
+    with pytest.raises(TypeError, match="mesh"):
         tr.RedundancyEstimator(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tr.max_offdiag_similarity_sharded(np.zeros((4, 8), np.float32), mesh=object())
