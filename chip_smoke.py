@@ -121,7 +121,19 @@ public entry points:
    and DEWI within phase 9's 1e-2), and ``max_offdiag_similarity_sharded``
    on 262,144 x 512 within 1e-6 of the single-device scan.  Four ranks on
    one card measure the collectives and the shared card, not scaling;
-13. one JSON line with every kernel's launches, error and times.
+13. the model axis (``parallel.ring``, ``.tp``, ``.sp``, ``.pp``,
+   ``shard_expert_params``) at the ``gpt2`` width and depth: (13a) a world
+   of one over NCCL, each entry point equal to the plain module in f32;
+   (13b) four gloo ranks sharing the card: ring attention at T 4096 (f32
+   logits and bf16 NLL against one process's forward), the estimator's
+   ring mode (``chip_len`` 1024) against one process's direct forward,
+   tensor parallelism (bf16 forward, one f32 ``train_lm`` step against the
+   unsharded step), sequence parallelism alone and with TP, the MoE LM
+   with one expert a rank, and a 4-stage pipeline (logits, 5
+   ``pp_train_step`` steps); each leg's ms beside one process's, the
+   collectives' share and peak memory, only the equalities asserted.  No
+   kernel launches here;
+14. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -2528,6 +2540,555 @@ def phase_mesh(card: str, n_docs: int = N_DOCS, n_queries: int = N_QUERIES, devi
     return dict(launches)
 
 
+# ---- phase 13: the model axis over ranks -----------------------------------------
+
+# One card again: 13a is a world of one over NCCL in this process; 13b runs
+# four gloo ranks sharing the card (NCCL refuses two ranks on one GPU).  They
+# measure correctness and what the collectives cost, not scaling.
+MA_SEED = 0
+MA_SIZES = dict(
+    name="gpt2",            # lm_config preset: d 768, 12 heads, 12 layers, d_ff 3072, bytes
+    layers=None,            # keep the preset's depth
+    one=(2, 256),           # 13a: batch x tokens
+    ring_t=4096,            # 13b ring: one document of T tokens, max_len T
+    est=(8, 1500, 4000, 56, 1024),   # long docs, their byte range, short docs, chip_len
+    tp=(8, 512),            # TP forward and train_lm step: batch x seq_len
+    sp_t=1024,              # sequence-parallel NLL: [2, T]
+    moe=(8, 128, 4),        # MoE: batch x tokens, experts (one per rank)
+    pp=(32, 128, 8, 5),     # PP: batch x tokens, microbatches, train steps
+)
+# 13a: max |delta| against the plain module (f32), of the largest |logit|.
+# Equal operations would give 0, but cuBLAS rounds f32 GEMMs of other shapes
+# (a microbatch's rows, a row-parallel product without its fused bias)
+# differently, and the ring's online softmax sums in another order: on an
+# H100 these moved gpt2's logits (max 3.41) by 4.8e-7 to 6.3e-6.
+MA_ONE_RTOL = 1e-5
+MA_RING_RTOL = 1e-4         # 13b: f32 ring logits, of the largest |logit|
+MA_BF16_NLL_RTOL = 5e-3     # bf16 mean NLL, relative
+MA_EST_TOL = 2e-2           # per-document mean and q90 (the reference's ring bound)
+MA_PARAM_RTOL = 1e-5        # a train step's parameters, of the largest magnitude
+MA_SP_TOL = 2e-4            # f32 NLL, rtol and atol (the reference's logits bound)
+MA_MOE_RTOL = 1e-5
+MA_PP_RTOL = 1e-4           # f32 pipelined logits, of the largest |logit|
+MA_LR = 3e-4
+MA_REPS = 3                 # timed repetitions after a warm-up
+
+
+def _ma_cfg(sizes: dict, **over):
+    import dataclasses
+
+    from dewi_tpu_torch.models.registry import lm_config
+
+    cfg = lm_config(sizes["name"], **over)
+    return dataclasses.replace(cfg, n_layers=sizes["layers"]) if sizes["layers"] else cfg
+
+
+def _ma_ids(shape: tuple, seed: int, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g).to(device)
+
+
+def _ma_ms(fn, device, reps: int = MA_REPS) -> float:
+    """Median host-clock ms of ``fn()`` to a ``synchronize``, after a warm-up
+    call.  Every rank of a collective ``fn`` calls it together."""
+    fn()
+    _sync(device)
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        _sync(device)
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def _ma_peak(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 1e9 if torch.device(device).type == "cuda" else 0.0
+
+
+def _ma_reset(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _ma_full(sharded, like) -> dict:
+    """``sharded``'s parameters with the shards all-gathered (a collective)."""
+    from dewi_tpu_torch.parallel.mesh import all_gather, shard_group
+
+    shapes = {n: p.shape for n, p in like.named_parameters()}
+    out = {}
+    for n, p in sharded.named_parameters():
+        t = p.detach()
+        if shard_group(p) is not None:
+            dim = next(i for i, (a, b) in enumerate(zip(t.shape, shapes[n])) if a != b)
+            t = all_gather(t.contiguous(), shard_group(p), dim=dim)
+        out[n] = t
+    return out
+
+
+def _ma_step_dev(got: dict, want: dict, grads: dict, lr: float) -> tuple:
+    """(largest deviation where the step-1 gradient is real, over the largest
+    parameter; largest where it is rounding noise, over lr): Adam turns
+    noise of either sign into an update of up to lr (phase 11b's rule; an
+    exact 0 on one side counts as noise)."""
+    gnorm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()])))
+    pmax = max(float(w.abs().max()) for w in want.values())
+    real = led = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        noise = grads[k].abs() < NOISE_LED * gnorm
+        if (~noise).any():
+            real = max(real, float(d[~noise].max()) / pmax)
+        if noise.any():
+            led = max(led, float(d[noise].max()) / lr)
+    return real, led
+
+
+def _ma_mean_nll(logits: torch.Tensor, ids: torch.Tensor, pad: torch.Tensor) -> float:
+    from dewi_tpu_torch.models.lm import token_nll
+
+    nll, valid = token_nll(logits, ids, pad)
+    return float(nll[valid].mean())
+
+
+def ma_world_of_one(sizes: dict, rendezvous: str, device: str, card: str) -> None:
+    """13a: a world of one over NCCL (gloo off the card).  Each model-axis
+    entry point equals the plain module on the same weights and inputs."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.lm import token_nll
+    from dewi_tpu_torch.models.moe import shard_expert_params
+    from dewi_tpu_torch.parallel import make_mesh, sequence_sharded_nll
+    from dewi_tpu_torch.parallel.pp import (pipelined_lm_logits, shard_stacked_params,
+                                            stack_block_params)
+    from dewi_tpu_torch.parallel.ring import ring_lm_logits
+    from dewi_tpu_torch.parallel.tp import shard_params
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    rows = {}
+    try:
+        mesh = make_mesh(device=None if backend == "nccl" else device)
+        check(mesh.group("model") is not None, "13a: the model axis of a world of one has a group")
+        cfg = _ma_cfg(sizes, dtype="float32")
+        model = registry.init_lm(cfg, seed=MA_SEED, device=mesh.device)
+        ids = _ma_ids(sizes["one"], MA_SEED + 1, mesh.device)
+        pad = torch.ones(ids.shape, device=mesh.device)
+        pad[1, ids.shape[1] * 3 // 4:] = 0
+        with torch.no_grad():
+            plain = model(ids, pad)
+            nll, valid = token_nll(plain, ids, pad)
+            lmax = float(plain.abs().max())
+            rows["ring_lm_logits"] = float((ring_lm_logits(model, ids, pad, mesh) - plain).abs().max())
+            rows["shard_params"] = float((shard_params(model, mesh)(ids, pad) - plain).abs().max())
+            got, _ = sequence_sharded_nll(model, ids, pad, mesh)
+            rows["sequence_sharded_nll"] = float((got - nll)[valid].abs().max())
+            pmesh = make_mesh(device=None if backend == "nccl" else device, axes=("data", "stage"))
+            stacked, rest = stack_block_params(model, cfg.n_layers)
+            blocks = shard_stacked_params(cfg, stacked, pmesh)
+            got = pipelined_lm_logits(cfg, blocks, rest, ids, pad, pmesh, n_microbatches=2)
+            rows["pipelined_lm_logits"] = float((got - plain).abs().max())
+            del blocks, stacked, rest
+            moe = registry.init_moe_lm(cfg, n_experts=sizes["moe"][2], seed=MA_SEED,
+                                       device=mesh.device)
+            rows["shard_expert_params"] = float(
+                (shard_expert_params(moe, mesh)(ids, pad) - moe(ids, pad)).abs().max())
+    finally:
+        dist.destroy_process_group()
+    log("model axis 13a world of one: " + json.dumps({
+        "backend": backend, "batch": list(sizes["one"]), "max_abs_diff": rows,
+        "max_abs_logit": lmax, "rtol": MA_ONE_RTOL, "card": card}))
+    for name, err in rows.items():
+        check(err <= MA_ONE_RTOL * lmax, f"13a: {name} is off the plain module by {err}")
+
+
+def _ma_broadcast(model, group) -> None:
+    """The first rank's weights on every rank (seeded weights, broadcast)."""
+    from dewi_tpu_torch.parallel.mesh import broadcast
+
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            broadcast(t, group)
+
+
+def _ma_coll_ms(fn, mesh) -> float:
+    """Median ms of one collective on host tensors, timed alone."""
+    mesh.barrier()
+    return _ma_ms(fn, "cpu", reps=10)
+
+
+def _ma_on_rank0(mesh, fn):
+    """``fn()`` on the first rank while the others wait (the one-process runs)."""
+    out = fn() if mesh.rank == 0 else None
+    mesh.barrier()
+    return out
+
+
+def ma_leg_ring(sizes: dict, mesh, dev) -> dict:
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.parallel.mesh import ring_shift
+    from dewi_tpu_torch.parallel.ring import ring_lm_logits, ring_token_nll
+
+    t = sizes["ring_t"]
+    ids = _ma_ids((1, t), MA_SEED + 2, dev)
+    pad = torch.ones((1, t), device=dev)
+    rec = {"tokens": t}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _ma_cfg(sizes, max_len=t, dtype=dtype)
+        model = registry.init_lm(cfg, seed=MA_SEED, device=dev)
+        _ma_broadcast(model, mesh.group("model"))
+        _ma_reset(dev)
+        if dtype == "float32":
+            got = ring_lm_logits(model, ids, pad, mesh)
+            rec["ms"] = _ma_ms(lambda: ring_lm_logits(model, ids, pad, mesh), dev)
+            rec["peak_mem_gb_rank0"] = _ma_peak(dev)
+
+            def plain():
+                with torch.no_grad():
+                    want = model(ids, pad)
+                    ms = _ma_ms(lambda: model(ids, pad), dev)
+                return float((got - want).abs().max() / want.abs().max()), ms
+
+            rec["f32_rel_err"], rec["one_process_ms"] = _ma_on_rank0(mesh, plain) or (None, None)
+            h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+            blk = torch.zeros((1, h, t // mesh.n_model, hd))
+            rec["shift_host_ms"] = _ma_coll_ms(
+                lambda: ring_shift((blk, blk, torch.ones(1, t // mesh.n_model)),
+                                   mesh.group("model")).wait(), mesh)
+            rec["shifts_per_forward"] = cfg.n_layers * (mesh.n_model - 1)
+            rec["p2p_share"] = rec["shift_host_ms"] * rec["shifts_per_forward"] / rec["ms"]
+        else:
+            nll, valid = ring_token_nll(model, ids, pad, mesh)
+            got16 = float(nll[valid].mean())
+            rec["bf16_ms"] = _ma_ms(lambda: ring_token_nll(model, ids, pad, mesh), dev)
+
+            def plain16():
+                with torch.no_grad():
+                    return _ma_mean_nll(model(ids, pad), ids, pad)
+
+            want16 = _ma_on_rank0(mesh, plain16)
+            rec["bf16_mean_nll"] = got16
+            rec["bf16_mean_nll_rel_err"] = abs(got16 - want16) / abs(want16) if want16 else None
+        del model
+    return rec
+
+
+def ma_leg_estimator(sizes: dict, mesh, dev) -> dict:
+    from dewi_tpu_torch.signals import TextEntropyEstimator
+
+    n_long, lo, hi, n_short, chip_len = sizes["est"]
+    t = sizes["ring_t"]
+    texts = (synthetic_texts(n_short, MA_SEED + 3, 1, chip_len - 8)
+             + synthetic_texts(n_long, MA_SEED + 4, lo, hi))
+    kw = dict(model_name=sizes["name"], max_length=t, batch_size=8, seed=MA_SEED)
+    est = TextEntropyEstimator(chip_len=chip_len, ring_mesh=mesh, **kw)
+    _ma_reset(dev)
+    mesh.barrier()
+    tt = time.perf_counter()
+    got = est.batch_compute(texts)
+    _sync(dev)
+    seconds = time.perf_counter() - tt
+    rec = {"docs": len(texts), "long_docs": n_long, "chip_len": chip_len, "max_length": t,
+           "seconds": seconds, "docs_per_s": len(texts) / seconds,
+           "peak_mem_gb_rank0": _ma_peak(dev),
+           "long_doc_tokens": [len(r.token_entropies) + 1 for r in got[n_short:]]}
+    del est
+
+    def plain():
+        one = TextEntropyEstimator(device=dev, **kw)
+        tt = time.perf_counter()
+        want = one.batch_compute(texts)
+        _sync(dev)
+        secs = time.perf_counter() - tt
+        mean = max(abs(a.mean_entropy - b.mean_entropy) for a, b in zip(got, want))
+        q90 = max(abs(a.q90_entropy - b.q90_entropy) for a, b in zip(got, want))
+        return mean, q90, secs
+
+    out = _ma_on_rank0(mesh, plain)
+    if out is not None:
+        rec["max_mean_diff"], rec["max_q90_diff"], s1 = out
+        rec["one_process_seconds"], rec["one_process_docs_per_s"] = s1, len(texts) / s1
+    return rec
+
+
+def ma_leg_tp_sp(sizes: dict, mesh, dev, texts: list) -> dict:
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.lm import token_nll
+    from dewi_tpu_torch.parallel import sequence_sharded_nll
+    from dewi_tpu_torch.parallel.mesh import all_gather, all_reduce
+    from dewi_tpu_torch.parallel.tp import shard_params
+    from dewi_tpu_torch.signals.tokenizer import get_tokenizer
+    from dewi_tpu_torch.training import lm_batches, train_lm
+    from dewi_tpu_torch.training.loops import _masked_ce
+
+    b, t = sizes["tp"]
+    rec = {"tp": {"batch": [b, t]}, "sp": {}}
+    ids = _ma_ids((b, t), MA_SEED + 5, dev)
+    pad = torch.ones((b, t), device=dev)
+    m16 = registry.init_lm(_ma_cfg(sizes), seed=MA_SEED, device=dev)
+    _ma_broadcast(m16, mesh.group("model"))
+    tp16 = shard_params(m16, mesh)
+    _ma_reset(dev)
+    with torch.no_grad():
+        got = _ma_mean_nll(tp16(ids, pad), ids, pad)
+        r = rec["tp"]
+        r["ms"] = _ma_ms(lambda: tp16(ids, pad), dev)
+        r["peak_mem_gb_rank0"] = _ma_peak(dev)
+        r["heads_per_rank"] = tp16.encoder.block_0.attn.n_heads
+
+        def plain():
+            return _ma_mean_nll(m16(ids, pad), ids, pad), _ma_ms(lambda: m16(ids, pad), dev)
+
+        out = _ma_on_rank0(mesh, plain)
+    r["bf16_mean_nll"] = got
+    if out is not None:
+        r["bf16_mean_nll_rel_err"] = abs(got - out[0]) / abs(out[0])
+        r["one_process_ms"] = out[1]
+    act = torch.zeros((b, t, m16.cfg.d_model), dtype=torch.bfloat16)
+    r["all_reduce_host_ms"] = _ma_coll_ms(lambda: all_reduce(act, mesh.group("model")), mesh)
+    r["all_reduces_per_forward"] = 2 * m16.cfg.n_layers
+    r["all_reduce_share"] = r["all_reduce_host_ms"] * r["all_reduces_per_forward"] / r["ms"]
+    del tp16, m16
+
+    cfg32 = _ma_cfg(sizes, dtype="float32")
+    m32 = registry.init_lm(cfg32, seed=MA_SEED, device=dev)
+    _ma_broadcast(m32, mesh.group("model"))
+    # SP alone and composed with TP, on a [2, sp_t] batch, against the plain NLL
+    ts = sizes["sp_t"]
+    sids = _ma_ids((2, ts), MA_SEED + 6, dev)
+    spad = torch.ones((2, ts), device=dev)
+    spad[1, ts * 3 // 4:] = 0
+    tp32 = shard_params(m32, mesh)
+    with torch.no_grad():
+        for name, model in (("alone", m32), ("with_tp", tp32)):
+            _ma_reset(dev)
+            nll, valid = sequence_sharded_nll(model, sids, spad, mesh)
+            rec["sp"][f"{name}_ms"] = _ma_ms(lambda: sequence_sharded_nll(model, sids, spad, mesh), dev)
+            rec["sp"][f"{name}_peak_mem_gb_rank0"] = _ma_peak(dev)
+
+            def plain():
+                want, _ = token_nll(m32(sids, spad), sids, spad)
+                err = float(((nll - want).abs() - MA_SP_TOL * want.abs())[valid].max())
+                return err, _ma_ms(lambda: m32(sids, spad), dev)
+
+            out = _ma_on_rank0(mesh, plain)
+            if out is not None:
+                rec["sp"][f"{name}_excess_over_tol"], rec["sp"]["one_process_ms"] = out
+    kb = torch.zeros((2, cfg32.n_heads, ts // mesh.n_model, cfg32.d_model // cfg32.n_heads))
+    rec["sp"]["all_gather_host_ms"] = _ma_coll_ms(lambda: all_gather(kb, mesh.group("model"), 2), mesh)
+    rec["sp"]["all_gathers_per_forward"] = 2 * cfg32.n_layers
+    rec["sp"]["all_gather_share"] = (rec["sp"]["all_gather_host_ms"]
+                                     * rec["sp"]["all_gathers_per_forward"] / rec["sp"]["alone_ms"])
+
+    # one train_lm step of the TP model against the unsharded step
+    kw = dict(steps=1, batch_size=b, seq_len=t, lr=MA_LR, seed=MA_SEED)
+    first = next(lm_batches(texts, get_tokenizer("byte"), t, b, 1, MA_SEED, dev))
+
+    def grads():
+        m32.zero_grad()
+        _masked_ce(m32(*first), *first).backward()
+        g = {n: p.grad.detach().clone() for n, p in m32.named_parameters()}
+        m32.zero_grad()
+        return g
+
+    step_grads = _ma_on_rank0(mesh, grads)
+    _ma_reset(dev)
+    mesh.barrier()
+    tt = time.perf_counter()
+    train_lm(tp32, texts, **kw)
+    _sync(dev)
+    r["train_step_ms"] = (time.perf_counter() - tt) * 1e3
+    r["train_peak_mem_gb_rank0"] = _ma_peak(dev)
+    full = _ma_full(tp32, m32)
+
+    def plain_step():
+        tt = time.perf_counter()
+        train_lm(m32, texts, **kw)
+        _sync(dev)
+        ms = (time.perf_counter() - tt) * 1e3
+        want = {n: p.detach() for n, p in m32.named_parameters()}
+        return _ma_step_dev(full, want, step_grads, MA_LR) + (ms,)
+
+    out = _ma_on_rank0(mesh, plain_step)
+    if out is not None:
+        r["train_param_rel_err"], r["train_noise_led_err_over_lr"], r["one_process_train_step_ms"] = out
+    r["note"] = "train_step_ms includes the optimizer build, as one train_lm(steps=1) call does"
+    return rec
+
+
+def ma_leg_moe(sizes: dict, mesh, dev) -> dict:
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.moe import shard_expert_params
+    from dewi_tpu_torch.parallel.mesh import all_reduce
+
+    b, t, e = sizes["moe"]
+    cfg = _ma_cfg(sizes, dtype="float32")
+    moe = registry.init_moe_lm(cfg, n_experts=e, seed=MA_SEED, device=dev)
+    _ma_broadcast(moe, mesh.group("model"))
+    ep = shard_expert_params(moe, mesh)
+    if mesh.rank:
+        del moe
+    ids = _ma_ids((b, t), MA_SEED + 7, dev)
+    pad = torch.ones((b, t), device=dev)
+    _ma_reset(dev)
+    rec = {"batch": [b, t], "experts": e, "experts_per_rank": ep.block_0.moe.w_in.shape[0]}
+    with torch.no_grad():
+        got = ep(ids, pad)
+        rec["ms"] = _ma_ms(lambda: ep(ids, pad), dev)
+        rec["peak_mem_gb_rank0"] = _ma_peak(dev)
+
+        def plain():
+            want = moe(ids, pad)
+            return rel_dev(got, want), _ma_ms(lambda: moe(ids, pad), dev)
+
+        out = _ma_on_rank0(mesh, plain)
+    if out is not None:
+        rec["rel_err"], rec["one_process_ms"] = out
+    x = torch.zeros((b * t, cfg.d_model))
+    rec["all_reduce_host_ms"] = _ma_coll_ms(lambda: all_reduce(x, mesh.group("model")), mesh)
+    rec["all_reduces_per_forward"] = cfg.n_layers
+    rec["all_reduce_share"] = rec["all_reduce_host_ms"] * cfg.n_layers / rec["ms"]
+    return rec
+
+
+def ma_leg_pp(sizes: dict, dev) -> dict:
+    from dewi_tpu_torch.models import registry
+    from dewi_tpu_torch.models.lm import token_nll
+    from dewi_tpu_torch.parallel import make_mesh
+    from dewi_tpu_torch.parallel.mesh import irecv, isend
+    from dewi_tpu_torch.parallel.pp import (pipelined_lm_logits, pp_train_step,
+                                            shard_stacked_params, stack_block_params)
+
+    b, t, m, steps = sizes["pp"]
+    pmesh = make_mesh(1, N_RANKS, device=dev, axes=("data", "stage"))
+    cfg = _ma_cfg(sizes, dtype="float32")
+    model = registry.init_lm(cfg, seed=MA_SEED, device=dev)
+    _ma_broadcast(model, pmesh.group("stage"))
+    stacked, rest = stack_block_params(model, cfg.n_layers)
+    blocks = shard_stacked_params(cfg, stacked, pmesh)
+    rest = {k: v.clone() for k, v in rest.items()}
+    del stacked
+    ids = _ma_ids((b, t), MA_SEED + 8, dev)
+    pad = torch.ones((b, t), device=dev)
+    _ma_reset(dev)
+    rec = {"batch": [b, t], "stages": N_RANKS, "layers_per_stage": len(blocks),
+           "microbatches": m}
+    got = pipelined_lm_logits(cfg, blocks, rest, ids, pad, pmesh, m)
+    rec["forward_ms"] = _ma_ms(lambda: pipelined_lm_logits(cfg, blocks, rest, ids, pad, pmesh, m), dev)
+
+    def plain():
+        with torch.no_grad():
+            want = model(ids, pad)
+            ms = _ma_ms(lambda: model(ids, pad), dev)
+        nll, valid = token_nll(want, ids, pad)
+        w = valid.float()
+        return float((got - want).abs().max() / want.abs().max()), ms, float((nll * w).sum() / w.sum())
+
+    out = _ma_on_rank0(pmesh, plain)
+    if out is not None:
+        rec["logits_rel_err"], rec["one_process_forward_ms"], plain_loss = out
+    train = {k: v.clone().requires_grad_() for k, v in rest.items()}
+    opt = torch.optim.Adam(list(blocks.parameters()) + list(train.values()), lr=MA_LR)
+    step = pp_train_step(cfg, opt, pmesh, n_microbatches=m)
+    losses, ms = [], []
+    _ma_reset(dev)
+    for _ in range(steps):
+        pmesh.barrier()
+        tt = time.perf_counter()
+        losses.append(float(step((blocks, train), ids, pad)))
+        _sync(dev)
+        ms.append((time.perf_counter() - tt) * 1e3)
+    rec.update(losses=losses, step_ms=ms, train_peak_mem_gb_rank0=_ma_peak(dev))
+    if out is not None:
+        rec["first_loss_rel_err"] = abs(losses[0] - plain_loss) / plain_loss
+    act = torch.zeros((b // m, t, cfg.d_model))
+    s = pmesh.index("stage")
+
+    def hop():  # one activation from each stage to the next
+        p = isend(act, s + 1, pmesh.group("stage")) if s < N_RANKS - 1 else None
+        if s > 0:
+            irecv(act, s - 1, pmesh.group("stage")).wait()
+        if p is not None:
+            p.wait()
+
+    rec["p2p_host_ms"] = _ma_coll_ms(hop, pmesh)
+    rec["p2p_per_step"] = 2 * m   # each microbatch forward and back, per stage boundary
+    rec["p2p_share"] = rec["p2p_host_ms"] * rec["p2p_per_step"] / statistics.median(ms[1:] or ms)
+    return rec
+
+
+def model_axis_rank(sizes: dict, device) -> dict:
+    """13b, one rank: every leg on a 1 x 4 mesh (PP on a stage mesh of 4);
+    rank 0's records."""
+    import torch.distributed as dist
+
+    from dewi_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, N_RANKS, device=device)
+    dev = mesh.device
+    texts = synthetic_texts(512, MA_SEED + 9, 1, 2 * sizes["tp"][1])
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    for name, fn in (("ring", lambda: ma_leg_ring(sizes, mesh, dev)),
+                     ("estimator", lambda: ma_leg_estimator(sizes, mesh, dev)),
+                     ("tp_sp", lambda: ma_leg_tp_sp(sizes, mesh, dev, texts)),
+                     ("moe", lambda: ma_leg_moe(sizes, mesh, dev)),
+                     ("pp", lambda: ma_leg_pp(sizes, dev))):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name]["leg_s"] = time.perf_counter() - t
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_axis(card: str, device=None, sizes: Optional[dict] = None) -> None:
+    """Phase 13: the model axis (ring attention, TP, SP, EP, PP) on one card;
+    13a in this process, 13b on four ranks.  ``device`` and ``sizes`` let a
+    CPU rehearsal shrink it.  Only the equalities are asserted."""
+    from dewi_tpu_torch.parallel import launch_local
+
+    sizes = {**MA_SIZES, **(sizes or {})}
+    dev = device or "cuda"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        ma_world_of_one(sizes, f"{tmp}/rendezvous_13a", dev, card)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = launch_local(model_axis_rank, N_RANKS, (sizes, device), backend="gloo",
+                       timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    common = {"ranks": N_RANKS, "backend": out["backend"], "device": out["device"], "card": card}
+    for leg in ("ring", "estimator", "tp_sp", "moe", "pp"):
+        log(f"model axis 13b {leg}, 4 ranks on one card (gloo): "
+            + json.dumps({**out[leg], **common}))
+    ring, est, tp, sp, moe, pp = (out["ring"], out["estimator"], out["tp_sp"]["tp"],
+                                  out["tp_sp"]["sp"], out["moe"], out["pp"])
+    check(ring["f32_rel_err"] <= MA_RING_RTOL, f"13b ring: f32 logits off by {ring['f32_rel_err']}")
+    check(ring["bf16_mean_nll_rel_err"] <= MA_BF16_NLL_RTOL,
+          f"13b ring: bf16 mean NLL off by {ring['bf16_mean_nll_rel_err']}")
+    check(max(est["max_mean_diff"], est["max_q90_diff"]) <= MA_EST_TOL,
+          f"13b estimator: mean/q90 off one process by {est['max_mean_diff']}/{est['max_q90_diff']}")
+    check(min(est["long_doc_tokens"]) > est["chip_len"], "13b estimator: a long doc was not long")
+    check(tp["bf16_mean_nll_rel_err"] <= MA_BF16_NLL_RTOL,
+          f"13b TP: bf16 mean NLL off by {tp['bf16_mean_nll_rel_err']}")
+    check(tp["train_param_rel_err"] <= MA_PARAM_RTOL and tp["train_noise_led_err_over_lr"] <= 2.0,
+          f"13b TP: the train step is off the unsharded one by {tp['train_param_rel_err']}")
+    for name in ("alone", "with_tp"):
+        check(sp[f"{name}_excess_over_tol"] <= 0.0, f"13b SP {name}: NLL off the plain NLL")
+    check(moe["rel_err"] <= MA_MOE_RTOL, f"13b MoE: off the replicated model by {moe['rel_err']}")
+    check(pp["logits_rel_err"] <= MA_PP_RTOL, f"13b PP: logits off by {pp['logits_rel_err']}")
+    check(pp["first_loss_rel_err"] <= MA_PARAM_RTOL,
+          f"13b PP: the first loss is off the plain step's by {pp['first_loss_rel_err']}")
+    check(pp["losses"][-1] < pp["losses"][0], f"13b PP: the loss did not fall: {pp['losses']}")
+    log(f"model axis phase: {time.perf_counter() - t0:.3f} s (13b launch {wall:.3f} s)")
+
+
 def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2570,6 +3131,7 @@ def main() -> int:
     phase_training(card)
     for name, n in phase_mesh(card).items():
         launches[name] += n
+    phase_model_axis(card)
 
     line = []
     for name, rec in kernels.items():

@@ -221,6 +221,29 @@ def lm_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     return _from_flax(tree, "causal LM", ("wte", "wpe", "encoder"))
 
 
+def stacked_blocks_from_flax(stacked: dict) -> Dict[str, torch.Tensor]:
+    """The pipeline's stacked block params (``parallel.pp.stack_block_params``)
+    from the reference's: one ``Block`` tree whose leaves carry a leading
+    ``[L, ...]`` layer axis, each layer converted as ``lm_params_from_flax``
+    converts a block."""
+    n_layers = int(np.asarray(next(iter(_leaves(stacked)))).shape[0])
+    layers = [_state_from_flax(_index_tree(stacked, i)) for i in range(n_layers)]
+    return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+
+
+def _leaves(tree: dict) -> Any:
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _index_tree(tree: dict, i: int) -> dict:
+    return {k: _index_tree(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
 def mae_params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     """A ``ViTMAE`` state dict from the reference's ``init_mae`` param tree."""
     return _from_flax(tree, "ViT-MAE", ("patch_embed", "encoder", "decoder", "mask_token"))
@@ -262,4 +285,5 @@ def moe_lm_params_to_flax(model: MoECausalLM) -> dict:
 __all__ = ["index_from_numpy_state", "ivf_index_from_numpy_state",
            "stats_from_numpy_state", "lm_params_from_flax", "mae_params_from_flax",
            "clip_params_from_flax", "lm_params_to_flax", "mae_params_to_flax",
-           "clip_params_to_flax", "moe_lm_params_from_flax", "moe_lm_params_to_flax"]
+           "clip_params_to_flax", "moe_lm_params_from_flax", "moe_lm_params_to_flax",
+           "stacked_blocks_from_flax"]

@@ -1,8 +1,8 @@
-"""Mixture-of-experts FFN (Switch-style top-1) on one device.
+"""Mixture-of-experts FFN (Switch-style top-1), with expert parallelism.
 
-Counterpart of ``dewi_tpu/models/moe.py`` without the mesh: the same
-routing, capacity, parameter layout and load-balance loss, so a checkpoint
-crosses between the packages (``convert.moe_lm_params_{from,to}_flax``).
+Counterpart of ``dewi_tpu/models/moe.py``: the same routing, capacity,
+parameter layout and load-balance loss, so a checkpoint crosses between
+the packages (``convert.moe_lm_params_{from,to}_flax``).
 
 * **Router in float32**: softmax over ``n_experts`` logits, top-1 expert and
   its probability as the gate.
@@ -20,17 +20,29 @@ crosses between the packages (``convert.moe_lm_params_{from,to}_flax``).
 * **The aux loss** (Switch: ``E * sum(f_e * p_e)``): each ``MoEMLP`` keeps
   its last forward's value in ``aux_loss``, where the reference sows it;
   :func:`load_balance_loss` averages them over the layers.
+* **Expert parallelism** (:func:`shard_expert_params`): each rank of the
+  axis group keeps ``E / n`` experts of the stacked leaves; the router is
+  replicated.  Routing, slots and the capacity are computed over all
+  tokens, as without a mesh, so the same tokens are kept in the same slots.
+  Each rank fills and runs only its experts' buffer rows, gathers its
+  tokens' outputs (zero for the others) and Megatron's *g* sums them over
+  the group; the gate multiplies after the sum, and the experts' input
+  passes through *f*, so every replicated parameter's gradient is the
+  unsharded one.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import (check_mesh, copy_to_group, group_index, group_size, mark_sharded,
+                             reduce_from_group)
 from .transformer import (Attention, TransformerConfig, activation_fn, layer_norm,
                           make_attention_mask)
 
@@ -53,11 +65,15 @@ class MoEMLP(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(e, d))
         self.act = activation_fn(cfg.activation)
         self.aux_loss: Optional[torch.Tensor] = None
+        # Expert parallelism: this rank holds experts expert_offset ... +
+        # w_in.shape[0] - 1 of n_experts, and sums outputs over expert_group.
+        self.expert_offset = 0
+        self.expert_group: Any = None
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.cfg.compute_dtype
-        e = self.n_experts
+        e, e_local, lo = self.n_experts, self.w_in.shape[0], self.expert_offset
         b, t, d = x.shape
         n = b * t
         cap = max(1, int(math.ceil(n / e * self.capacity_factor)))
@@ -77,16 +93,20 @@ class MoEMLP(nn.Module):
         keep = (pos < cap).to(torch.float32) * onehot              # [N, E]
         kept = keep.sum(dim=-1) > 0                                # [N]
         slot = (pos * onehot).sum(dim=-1).to(torch.int64)
-        # Buffer row of each token: expert * cap + slot, or the spare row.
-        row = torch.where(kept, expert * cap + slot, torch.full_like(slot, e * cap))
+        # Buffer row of each token of this rank's experts: (expert - offset)
+        # * cap + slot; every other token goes to the spare row.
+        mine = kept & (expert >= lo) & (expert < lo + e_local)
+        row = torch.where(mine, (expert - lo) * cap + slot, torch.full_like(slot, e_local * cap))
 
-        buf = torch.zeros(e * cap + 1, d, dtype=dt, device=x.device)
-        expert_in = buf.index_add(0, row, xf.to(dt))[: e * cap].view(e, cap, d)
+        group = self.expert_group
+        buf = torch.zeros(e_local * cap + 1, d, dtype=dt, device=x.device)
+        expert_in = buf.index_add(0, row, copy_to_group(xf, group).to(dt))
+        expert_in = expert_in[: e_local * cap].view(e_local, cap, d)
         h = torch.bmm(expert_in, self.w_in.to(dt)) + self.b_in[:, None, :].to(dt)
         h = self.act(h)
         h = torch.bmm(h, self.w_out.to(dt)) + self.b_out[:, None, :].to(dt)
-        h = torch.cat([h.reshape(e * cap, d), h.new_zeros(1, d)])
-        out = h.index_select(0, row) * gate.to(dt)[:, None]        # [N, D]
+        h = torch.cat([h.reshape(e_local * cap, d), h.new_zeros(1, d)])
+        out = reduce_from_group(h.index_select(0, row), group) * gate.to(dt)[:, None]  # [N, D]
 
         denom = (pad_mask.to(torch.float32).sum().clamp_min(1.0) if pad_mask is not None
                  else float(n))
@@ -143,6 +163,27 @@ class MoECausalLM(nn.Module):
         return torch.matmul(x.to(dt), wte.T).to(torch.float32)
 
 
+def shard_expert_params(model: nn.Module, mesh: Any, axis: str = "model") -> nn.Module:
+    """A copy of ``model`` on the mesh's device whose ``MoEMLP`` layers keep
+    this rank's ``E / n`` experts of the stacked ``w_in``, ``b_in``,
+    ``w_out``, ``b_out`` leaves (expert parallelism over ``axis``); the
+    router and every other parameter are replicated.  With ``E % n != 0``
+    the experts stay replicated.  Every rank of the axis group must call the
+    copy's forward together."""
+    group = check_mesh(mesh).group(axis)
+    n, i = group_size(group), group_index(group)
+    out = copy.deepcopy(model).to(mesh.device)
+    for m in out.modules():
+        if isinstance(m, MoEMLP) and m.n_experts % n == 0:
+            per = m.n_experts // n
+            with torch.no_grad():
+                for name in ("w_in", "b_in", "w_out", "b_out"):
+                    p = nn.Parameter(getattr(m, name)[i * per:(i + 1) * per].clone())
+                    setattr(m, name, mark_sharded(p, group))
+            m.expert_offset, m.expert_group = i * per, group
+    return out
+
+
 def load_balance_loss(model: nn.Module) -> torch.Tensor:
     """The mean of the Switch aux losses the model's ``MoEMLP`` layers kept
     from their last forward; ``0.0`` for a model that has none."""
@@ -153,4 +194,4 @@ def load_balance_loss(model: nn.Module) -> torch.Tensor:
     return sum(terms) / len(terms)
 
 
-__all__ = ["MoEMLP", "MoEBlock", "MoECausalLM", "load_balance_loss"]
+__all__ = ["MoEMLP", "MoEBlock", "MoECausalLM", "load_balance_loss", "shard_expert_params"]

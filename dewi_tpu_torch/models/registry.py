@@ -238,12 +238,25 @@ def _converters(model: nn.Module) -> tuple:
     return table[type(model)]
 
 
+def refuse_sharded_write(model: nn.Module, path: Optional[PathLike]) -> None:
+    """Raise when ``path`` is set and ``model`` holds a rank's shards
+    (``parallel.tp.shard_params``, ``shard_expert_params``): its tensors
+    are slices, and a checkpoint of them would not load as the model."""
+    from ..parallel.mesh import shard_group
+
+    if path is not None and any(shard_group(p) is not None for p in model.parameters()):
+        raise ValueError(f"{path}: a model sharded over a mesh holds this rank's slices; "
+                         "save the unsharded model")
+
+
 def save_params(model: nn.Module, path: PathLike) -> None:
     """Write ``model``'s weights as the reference's msgpack checkpoint: the
     ``{"params": ...}`` tree its ``init_*`` returns, which its ``load_params``
     reads into the same architecture.  An orbax directory path (no suffix,
-    or an existing directory) raises: the port does not write that format."""
+    or an existing directory) raises: the port does not write that format;
+    so does a model sharded over a mesh."""
     refuse_orbax_write(path)
+    refuse_sharded_write(model, path)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(packb(_converters(model)[0](model)))
@@ -301,6 +314,6 @@ __all__ = [
     "LM_PRESETS", "MAE_PRESETS", "CLIP_PRESETS",
     "lm_config", "mae_config", "clip_config",
     "init_lm", "init_mae", "init_clip", "init_moe_lm",
-    "save_params", "load_params", "maybe_load", "refuse_orbax_write",
+    "save_params", "load_params", "maybe_load", "refuse_orbax_write", "refuse_sharded_write",
     "param_count", "checkpoint_fingerprint",
 ]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,23 +102,40 @@ class Attention(nn.Module):
         self.value = nn.Linear(cfg.d_model, cfg.d_model)
         self.out = nn.Linear(cfg.d_model, cfg.d_model)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The projections as ``[B, heads, T, head_dim]`` (the heads this
+        module holds: all of them, or a tensor-parallel rank's share)."""
         dt = self.cfg.compute_dtype
         b, t, _ = x.shape
 
-        def heads(layer: nn.Linear) -> torch.Tensor:  # [B, H, T, hd]
-            return dense(layer, x, dt).view(b, t, self.n_heads, self.head_dim).transpose(1, 2)
+        def heads(layer: nn.Linear) -> torch.Tensor:
+            return dense(layer, x, dt).view(b, t, -1, self.head_dim).transpose(1, 2)
 
-        q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        # jnp.sqrt(depth).astype(dtype): the f32 root rounded to the compute dtype.
-        q = q / torch.tensor(math.sqrt(self.head_dim), dtype=torch.float32).to(dt)
-        w = torch.matmul(q, k.transpose(-1, -2))  # [B, H, T, T]
-        if mask is not None:
-            w = w.masked_fill(~mask, torch.finfo(dt).min)
-        w = torch.softmax(w, dim=-1)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, self.cfg.d_model)
-        return dense(self.out, o, dt)
+        return heads(self.query), heads(self.key), heads(self.value)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        o = attend(*self.qkv(x), mask, dt)
+        return dense(self.out, merge_heads(o), dt)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
+    """Softmax attention of ``q [B, H, Tq, hd]`` over ``k, v [B, H, Tk, hd]``
+    as Flax computes it; ``mask`` broadcasts to ``[B, H, Tq, Tk]``."""
+    # jnp.sqrt(depth).astype(dtype): the f32 root rounded to the compute dtype.
+    q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(dt)
+    w = torch.matmul(q, k.transpose(-1, -2))  # [B, H, Tq, Tk]
+    if mask is not None:
+        w = w.masked_fill(~mask, torch.finfo(dt).min)
+    return torch.matmul(torch.softmax(w, dim=-1), v)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """``[B, H, T, hd]`` -> ``[B, T, H * hd]``."""
+    b, _, t, _ = o.shape
+    return o.transpose(1, 2).reshape(b, t, -1)
 
 
 class Block(nn.Module):
@@ -176,6 +193,8 @@ __all__ = [
     "Attention",
     "MLP",
     "make_attention_mask",
+    "attend",
+    "merge_heads",
     "activation_fn",
     "compute_dtype",
     "dense",

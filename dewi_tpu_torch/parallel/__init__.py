@@ -1,8 +1,10 @@
 """Mesh/runtime layer over ``torch.distributed``: meshes, shardings,
-distributed search and data-parallel estimator placement.
+distributed search, data-parallel estimator placement, and the model axis.
 
-Counterpart of ``dewi_tpu/parallel``'s data axis.  The model axis (ring
-attention, sequence, tensor and pipeline parallelism) is not ported yet.
+Counterpart of ``dewi_tpu/parallel``.  The model axis lives in its modules:
+``ring`` (ring attention), ``tp`` (tensor parallelism), ``sp`` (sequence
+parallelism) and ``pp`` (pipeline parallelism); expert parallelism is
+``models.moe.shard_expert_params``.
 """
 
 from .distributed import (
@@ -30,6 +32,7 @@ from .runtime import (
     shard_batch,
 )
 from .signals import DataParallel
+from .sp import sequence_sharded_nll, shard_tokens
 
 __all__ = [
     "DATA_AXIS",
@@ -51,4 +54,6 @@ __all__ = [
     "default_mesh",
     "launch_local",
     "DataParallel",
+    "shard_tokens",
+    "sequence_sharded_nll",
 ]

@@ -13,6 +13,15 @@ every rank tokenizes and buckets the whole batch, runs the forward on its
 slice of the rows, and the per-token NLL is gathered back into the whole
 batch before the aggregates, so every rank ends with every document's
 values.
+
+Documents longer than ``chip_len`` (default: the model's ``max_len``) take
+the long-document path.  Under a ``ring_mesh`` one that fits the model's
+positions is scored whole in one ring-attention forward over the mesh's
+model axis (``parallel.ring``); the rest are scored over overlapping windows
+of ``chip_len``.  The ring path gathers only the ``[1, T]`` NLL, never the
+``[1, T, V]`` logits.  Under a ``ring_mesh`` the estimator is collective:
+every rank of the mesh calls it with the same texts and gets the same
+results.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ from ..models.lm import token_nll
 from ..models.registry import init_lm, lm_config, maybe_load
 from ..models.transformer import TransformerConfig
 from ..ops.robust import masked_mean_and_quantiles
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, broadcast, check_mesh, mesh_device
+from ..parallel.ring import ring_token_nll
 from ..parallel.signals import DataParallel
-from ..utils.device import DeviceLike, refuse_multi_device
+from ..utils.device import DeviceLike
 from .tokenizer import bucket_length, get_tokenizer
 
 
@@ -66,11 +77,11 @@ class TextEntropyEstimator:
     """LM token-NLL estimator with bucketed batch inference.
 
     ``device=None`` runs on the card (raising without one), or on the
-    mesh's device under ``mesh=``, where the batch size rounds up to a
-    multiple of the data axis and the weights are the first rank's.
-    ``ring_mesh=`` and ``chip_len=`` belong to the model axis and raise
-    ``NotImplementedError``; the context of one forward is the model's
-    ``max_len``.
+    mesh's device under ``mesh=`` (or ``ring_mesh=``), where the batch size
+    rounds up to a multiple of the data axis and the weights are the first
+    rank's.  ``chip_len`` (at most the model's ``max_len``) is the longest
+    document one forward scores; with ``ring_mesh`` a longer one that fits
+    ``max_len`` is scored exactly over the ring, else over windows.
     """
 
     def __init__(
@@ -89,7 +100,9 @@ class TextEntropyEstimator:
         chip_len: Optional[int] = None,
         mesh: Any = None,
     ) -> None:
-        refuse_multi_device(ring_mesh=ring_mesh, chip_len=chip_len)
+        self.ring_mesh = check_mesh(ring_mesh) if ring_mesh is not None else None
+        if mesh is None and self.ring_mesh is not None:
+            device = mesh_device(self.ring_mesh, device)
         self._dp = DataParallel(mesh, device)
         self.device = self._dp.device
         self.quantiles = tuple(float(q) for q in quantiles)
@@ -114,7 +127,7 @@ class TextEntropyEstimator:
                 cfg = lm_config(model_name, vocab_size=self.tokenizer.vocab_size,
                                 max_len=int(max_length))
         self.cfg = cfg
-        self.chip_len = cfg.max_len
+        self.chip_len = min(int(chip_len or cfg.max_len), cfg.max_len)
         self.model = maybe_load(init_lm(cfg, seed=seed, device=self.device), checkpoint)
         self.domain_model = None
         if domain_model_name or domain_checkpoint:
@@ -124,10 +137,20 @@ class TextEntropyEstimator:
             self.domain_model = maybe_load(
                 init_lm(self.domain_cfg, seed=seed + 1, device=self.device),
                 domain_checkpoint)
-        self._dp.replicate(self.model)
-        if self.domain_model is not None:
-            self._dp.replicate(self.domain_model)
+        for m in (self.model, self.domain_model):
+            if m is not None:
+                self._dp.replicate(m)
+                if self.ring_mesh is not None:
+                    self._ring_replicate(m)
         self._qs = torch.tensor(self.quantiles, dtype=torch.float32, device=self.device)
+
+    def _ring_replicate(self, module: torch.nn.Module) -> None:
+        """Give ``module`` the first rank's weights on every rank of the
+        ring mesh (the ring forward needs one model on the whole axis)."""
+        with torch.no_grad():
+            for t in module.state_dict().values():
+                for axis in (MODEL_AXIS, DATA_AXIS):
+                    broadcast(t, self.ring_mesh.group(axis))
 
     # -- scoring --------------------------------------------------------------
 
@@ -223,8 +246,28 @@ class TextEntropyEstimator:
                     )
         return results  # type: ignore[return-value]
 
+    def _compute_long_ring(self, ids_full: List[int], relative_to_domain: bool) -> TextEntropyResult:
+        """The whole document in one ring-attention forward over the ring
+        mesh's model axis: its power-of-two bucket, rounded up to a multiple
+        of the axis and at least twice it, padded."""
+        s_axis = self.ring_mesh.shape[MODEL_AXIS]
+        n = len(ids_full)
+        b = bucket_length(max(n, 2), max_len=self.cfg.max_len)
+        t = max(((b + s_axis - 1) // s_axis) * s_axis, 2 * s_axis)
+        ids = np.full((1, t), self.tokenizer.pad_id, dtype=np.int64)
+        ids[0, :n] = ids_full
+        if self.tokenizer.pad_id >= self.cfg.vocab_size:
+            ids[0, n:] = 0  # an out-of-vocab pad sentinel; padding is masked
+        pad = (np.arange(t) < n).astype(np.float32)[None, :]
+        nll, valid = ring_token_nll(self.model, ids, pad, self.ring_mesh)
+        if relative_to_domain and self.domain_model is not None:
+            nll = nll - ring_token_nll(self.domain_model, ids, pad, self.ring_mesh)[0]
+        return _result_from_stream(nll[valid].cpu().numpy())
+
     def _compute_long(self, text: str, relative_to_domain: bool, bs: int) -> TextEntropyResult:
-        """Long-document path: overlapping fixed windows, merged token stream.
+        """Long-document path.  With a ring mesh, a document within the
+        model's ``max_len`` is scored whole over the ring.  Otherwise:
+        overlapping fixed windows, merged token stream.
 
         Windows of ``chip_len`` tokens advance by ``chip_len - overlap``
         (``overlap = chip_len // 4``); after the first window, each window's
@@ -232,6 +275,8 @@ class TextEntropyEstimator:
         kept token has at least ``overlap - 1`` tokens of left context.
         """
         ids_full = self.tokenizer.encode(text, 1 << 30)
+        if self.ring_mesh is not None and len(ids_full) <= self.cfg.max_len:
+            return self._compute_long_ring(ids_full, relative_to_domain)
         t = self.chip_len
         overlap = t // 4
         stride = t - overlap

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.lm import token_nll
-from ..models.registry import refuse_orbax_write, save_params
+from ..models.registry import refuse_orbax_write, refuse_sharded_write, save_params
+from ..parallel.mesh import all_reduce, shard_group
 from ..signals.tokenizer import get_tokenizer
 
 MAX_GRAD_NORM = 1.0
@@ -67,20 +68,35 @@ def _make_optimizer(params: Sequence[torch.Tensor], lr: float, steps: int,
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, cosine)
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor]) -> None:
+def _clip_by_global_norm(grads: List[torch.Tensor], groups: Optional[List[Any]] = None) -> None:
     """optax's ``clip_by_global_norm(1.0)``, in place: ``g`` stays when the
-    global norm is below 1, else becomes ``g / norm``."""
+    global norm is below 1, else becomes ``g / norm``.  ``groups[i]`` is the
+    group that ``grads[i]``'s parameter is sharded over (tensor or expert
+    parallelism, ``mesh.mark_sharded``), or ``None``: a sharded gradient is
+    only this rank's part, so its squares are summed over the group and the
+    replicated ones counted once, which is the norm of the whole model's
+    gradient."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if groups is None or all(g is None for g in groups):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        by_group: Dict[Any, List[torch.Tensor]] = {}
+        for g, group in zip(grads, groups):
+            by_group.setdefault(group, []).append(g)
+        sq = torch.zeros((), device=grads[0].device)
+        for group, gs in by_group.items():
+            part = torch.stack(torch._foreach_norm(gs)).square().sum()
+            sq = sq + (part if group is None else all_reduce(part, group))
+        norm = sq.sqrt()
     torch._foreach_div_(grads, torch.where(norm >= MAX_GRAD_NORM, norm, torch.ones_like(norm)))
 
 
 def _apply_update(optimizer: torch.optim.Optimizer, scheduler: Any) -> None:
     """Clip the parameters' gradients, step the optimizer and the schedule."""
-    grads = [p.grad for group in optimizer.param_groups for p in group["params"]
-             if p.grad is not None]
-    _clip_by_global_norm(grads)
+    params = [p for group in optimizer.param_groups for p in group["params"]
+              if p.grad is not None]
+    _clip_by_global_norm([p.grad for p in params], [shard_group(p) for p in params])
     optimizer.step()
     scheduler.step()
 
@@ -165,6 +181,7 @@ def _lm_loop(loss_fn: Callable[..., torch.Tensor], model: nn.Module,
     """Shared LM-pretraining scaffold: tokenizer default, batch iterator,
     optimizer, run loop, checkpoint save.  ``loss_fn(ids, mask)``."""
     refuse_orbax_write(checkpoint)
+    refuse_sharded_write(model, checkpoint)
     tokenizer = tokenizer or get_tokenizer("byte")
     seq_len = int(seq_len or min(model.cfg.max_len, 128))
     batches = lm_batches(texts, tokenizer, seq_len, batch_size, steps, seed, _device(model))

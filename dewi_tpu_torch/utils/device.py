@@ -28,16 +28,4 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def refuse_multi_device(**args: object) -> None:
-    """Raise for the model-axis arguments (``ring_mesh=``, ``chip_len=``)
-    that a caller set: ring attention over the mesh's model axis is not
-    ported yet (the data axis, ``mesh=``, is)."""
-    given = sorted(name for name, value in args.items() if value is not None)
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the model axis (ring attention over a mesh) "
-            "is not ported yet (ROADMAP.md queue 1 step 12b)"
-        )
-
-
-__all__ = ["DeviceLike", "resolve_device", "refuse_multi_device"]
+__all__ = ["DeviceLike", "resolve_device"]

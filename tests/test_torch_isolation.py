@@ -56,7 +56,9 @@ def test_import_pulls_in_no_jax():
             "import dewi_tpu_torch.models.moe; "
             "import dewi_tpu_torch.parallel, dewi_tpu_torch.parallel.mesh; "
             "import dewi_tpu_torch.parallel.runtime, dewi_tpu_torch.parallel.distributed; "
-            "import dewi_tpu_torch.parallel.signals; "
+            "import dewi_tpu_torch.parallel.signals, dewi_tpu_torch.parallel.ring; "
+            "import dewi_tpu_torch.parallel.tp, dewi_tpu_torch.parallel.sp; "
+            "import dewi_tpu_torch.parallel.pp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{LOAD_FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -101,6 +103,10 @@ def test_new_modules_are_checked():
         "__init__", "mesh", "runtime", "distributed", "signals")} | {
         "examples/torch_multichip_search.py"}
     assert parallel_slice <= names
+    model_axis_slice = {f"dewi_tpu_torch/parallel/{m}.py" for m in ("ring", "tp", "sp", "pp")} | {
+        "dewi_tpu_torch/models/moe.py", "dewi_tpu_torch/training/loops.py",
+        "dewi_tpu_torch/signals/text_entropy.py"}
+    assert model_axis_slice <= names
 
 
 def test_native_build_stays_in_its_directory(tmp_path):

@@ -383,8 +383,8 @@ def test_seeded_init_follows_flax_distributions():
 
 def test_entry_points_default_to_the_card():
     """Without ``device=`` the models and estimators run on the card, and
-    raise where there is none; the model-axis arguments raise and ``mesh=``
-    takes only a Mesh."""
+    raise where there is none; ``chip_len=`` is taken, and ``ring_mesh=``
+    and ``mesh=`` take only a Mesh."""
     from dewi_tpu_torch.io import DeviceImages
     from dewi_tpu_torch.signals import (CrossModalDependency, ImageEntropyEstimator,
                                         TextEntropyEstimator)
@@ -401,9 +401,8 @@ def test_entry_points_default_to_the_card():
                   lambda: DeviceImages(np.zeros((2, 8, 8, 3), np.uint8))):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
-    with pytest.raises(NotImplementedError, match="step 12b"):
-        TextEntropyEstimator("tiny", device="cpu", chip_len=32)
-    with pytest.raises(NotImplementedError, match="ring_mesh"):
+    assert TextEntropyEstimator("tiny", device="cpu", chip_len=32).chip_len == 32
+    with pytest.raises(TypeError, match="mesh"):
         TextEntropyEstimator("tiny", device="cpu", ring_mesh=object())
     # mesh= is the data axis (ported): anything but a Mesh is refused.
     with pytest.raises(TypeError, match="mesh"):

@@ -11,8 +11,17 @@ router's input is the bf16 residual stream, rounded at other points), and
 its logits and those of the tokens attending to it move by more: so 90% of
 the tokens' logits within 3e-2 relative (the bound ``test_torch_models.py``
 holds the dense LM to) and every token within 0.1 (0.072 measured), and
-the aux loss within 3e-2.  The expert-parallel
-test (``shard_expert_params``) waits for the multi-device slice.
+the aux loss within 3e-2.
+
+Expert parallelism (``shard_expert_params``) runs on four gloo ranks
+started once by ``parallel.launch_local`` (a module-scoped fixture; the
+rank function is ``torch_model_axis.ep_worker``, in a module without JAX):
+8 experts, 2 a rank, against the reference's ``shard_expert_params``
+forward on 8 virtual devices (``rtol 2e-4, atol 2e-4``, its own bound) and
+the replicated port model (1e-5 relative); ``E % n != 0`` replicates; one
+``train_moe_lm`` step sharded against unsharded (parameters within 1e-5
+of the largest magnitude, 2 lr where the step-1 gradient is rounding
+noise, as ``test_torch_training.py`` explains).
 """
 
 import dataclasses
@@ -30,6 +39,8 @@ from dewi_tpu_torch import convert
 from dewi_tpu_torch.models import moe as tmoe
 from dewi_tpu_torch.models import registry as treg
 from dewi_tpu_torch.models.lm import token_nll
+from dewi_tpu_torch.parallel import launch_local
+from torch_model_axis import STEP_KW, ep_inputs, ep_worker, step_deviation
 
 F32_RTOL = 1e-5
 BF16_RTOL = 3e-2
@@ -280,3 +291,50 @@ def test_loss_decreases_with_aux():
         opt.step()
         losses.append(float(loss.detach()))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# ---- expert parallelism ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ep():
+    return launch_local(ep_worker, 4, timeout=180.0, threads=1)
+
+
+def _ep_plain(n_experts):
+    cfg = treg.lm_config("tiny", max_len=16, dtype="float32")
+    model = treg.init_moe_lm(cfg, n_experts=n_experts, seed=0, device="cpu")
+    ids, pad = ep_inputs()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(ids), torch.from_numpy(pad)).numpy()
+    return model, logits, float(tmoe.load_balance_loss(model))
+
+
+class TestExpertParallel:
+    def test_sharded_forward_matches_reference(self, ep):
+        from jax.sharding import Mesh
+
+        model, plain, aux = _ep_plain(8)
+        assert ep["w_in_shape"] == (2, 64, 256)
+        assert rel_dev(ep["logits"], plain) <= F32_RTOL
+        assert abs(ep["aux"] - aux) <= F32_RTOL * aux
+        jm = jmoe.MoECausalLM(ref_cfg(model.cfg), n_experts=8)
+        params = jax.tree.map(jnp.asarray, convert.moe_lm_params_to_flax(model))
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(1, 8), ("data", "model"))
+        sharded = jmoe.shard_expert_params(params, mesh, axis="model")
+        ids, pad = ep_inputs()
+        with jax.set_mesh(mesh):
+            want, _ = jax.jit(lambda p, i, m: jm.apply(p, i, m, mutable=["aux_loss"]))(
+                sharded, ids.astype(np.int32), pad)
+        np.testing.assert_allclose(ep["logits"], np.asarray(want), rtol=2e-4, atol=2e-4)
+
+    def test_indivisible_experts_replicate(self, ep):
+        _, plain, _ = _ep_plain(6)
+        assert ep["odd_w_in_shape"] == (6, 64, 256)
+        assert rel_dev(ep["odd_logits"], plain) <= F32_RTOL
+
+    def test_train_step_matches_unsharded(self, ep):
+        real, led = step_deviation(ep["step_sharded"], ep["step_plain"], ep["grads"],
+                                   STEP_KW["lr"])
+        assert real <= F32_RTOL
+        assert led <= 2.0
