@@ -502,7 +502,8 @@ def phase_stream_kernels() -> dict:
     """Kernels 9 and 10 against their plain versions; their times at the
     bench's shape, Q 1, 8 and 32.  ``stream_search``'s Q=1 row and
     ``int8_stream_search``'s Q=8 row (the only shape the bench gives it) go
-    into the kernels line, the Q=32 rows beside them."""
+    into the kernels line, the Q=32 rows beside them, and
+    ``stream_search``'s Q=8 row beside those."""
     from dewi_tpu_torch.ops import cuda_search as cs
 
     out = {name: {"max_abs_err": 0.0} for name in STREAM_KERNELS}
@@ -537,9 +538,9 @@ def phase_stream_kernels() -> dict:
                 + json.dumps(row))
             if nq == line_q[name]:
                 rec.update(row)
-            elif nq == 32:  # the full launch of 32 queries beside it
-                rec.update(q32_ms=ms, q32_plain_ms=plain_ms, q32_bound_ms=bound_ms,
-                           q32_bound_by=bound_by, q32_library_ms=lib_ms)
+            elif nq in (8, 32):  # the bench's Q=8 and the full launch of 32 beside it
+                rec.update({f"q{nq}_{key}": row[key] for key in
+                            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     log("stream kernel max_abs_err vs plain (all shapes; tolerance 1e-5 relative + absolute): "
         + json.dumps({k_: v["max_abs_err"] for k_, v in out.items()}))
     cs.reset_launch_counts()
@@ -896,8 +897,9 @@ def phase_stream(index, queries: torch.Tensor, ref_ids: torch.Tensor) -> dict:
     at Q 1 and 8 and ``int8_stream_search`` at Q 1, 8 and 32, CUDA-event
     medians of 50,
     each beside ``fused_search`` (block-max selection, as the exact index
-    calls it) on the same store; recall@10 of all 1000 queries, in groups of
-    32, against exact f32."""
+    calls it) on the same store; all 1000 queries through ``stream_search``
+    in groups of 32 (CUDA events, median of 5), and their recall@10 and
+    ``int8_stream_search``'s against exact f32."""
     from dewi_tpu_torch.ops import cuda_search as cs
     from dewi_tpu_torch.ops.similarity import fused_search, l2_normalize
 
@@ -919,9 +921,13 @@ def phase_stream(index, queries: torch.Tensor, ref_ids: torch.Tensor) -> dict:
         row[f"stream_int8_ms_q{nq}"] = time_device_ms(
             lambda: cs.int8_stream_search(b._q_emb, b._q_scales, pay, qx, n, ETA, EP, k=K,
                                           block=8192))
+    groups = [qn[i:i + cs.MAX_QUERIES].contiguous()
+              for i in range(0, qn.shape[0], cs.MAX_QUERIES)]
+    row["stream_f32_ms_all_queries"] = time_device_ms(
+        lambda: [cs.stream_search(emb, pay, qx, n, ETA, EP, k=K, block=8192) for qx in groups],
+        reps=5)
     ids_f32, ids_i8 = [], []
-    for i in range(0, qn.shape[0], cs.MAX_QUERIES):
-        qx = qn[i:i + cs.MAX_QUERIES].contiguous()
+    for qx in groups:
         s, ids = cs.stream_search(emb, pay, qx, n, ETA, EP, k=K, block=8192)
         check(bool(torch.isfinite(s).all()) and bool((s > -3.4e38).all())
               and s.shape == (qx.shape[0], K), "stream_search: output")
@@ -3142,9 +3148,10 @@ def main() -> int:
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                      "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                     # every kernel at 32 queries
+                     # every kernel at 32 queries, stream_search also at 8
                      **{k: rec.get(k) for k in ("q32_ms", "q32_plain_ms", "q32_bound_ms",
-                                                "q32_bound_by", "q32_library_ms")}})
+                                                "q32_bound_by", "q32_library_ms")},
+                     **{k: v for k, v in rec.items() if k.startswith("q8_")}})
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 // Helpers shared by the search kernels (search_kernels.cu, stream_kernels.cu):
-// the row-tile geometry, cp.async staging, the tensor-core primitives, the
-// row unpacks, the streaming searches' top-k lists and the shared-memory
+// the tile height, cp.async copies, the tensor-core primitives, the row
+// unpacks, the streaming searches' top-k lists and the shared-memory
 // opt-in.
 
 #pragma once
@@ -15,37 +15,13 @@
 namespace dewi {
 
 constexpr int kSub = 128;                  // rows per tile == BLOCKMAX_SUB
-constexpr int kThreads = kSub;             // one thread per corpus row
-constexpr int kSlabBytes = 256;            // bytes of each row staged per pass
-constexpr int kStride = kSlabBytes + 16;   // padded shared-memory row stride
-constexpr int kTileBytes = kSub * kStride;
 constexpr int kMaxSmem = 232448;           // per-block limit on sm_90
 constexpr int kMaxDevices = 64;
 
+// A 16-byte cp.async from gmem to smem (both 16-byte aligned).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Stage bytes [s0, s0 + sb) of the kSub rows from row0 on into the tile,
-// 16 bytes a copy, neighbouring threads on neighbouring addresses.  Ends
-// with the tile visible to every thread of the CTA.
-__device__ __forceinline__ void stage_slab(uint8_t* tile, const uint8_t* emb, long long row0,
-                                           int row_bytes, int s0, int sb, int tid) {
-  const int cpr = sb / 16;  // 16-byte chunks per row in this slab
-  __syncthreads();          // the previous slab has been consumed
-  for (int i = tid; i < kSub * cpr; i += kThreads) {
-    const int r = i / cpr;
-    const int c = i - r * cpr;
-    cp_async16(tile + r * kStride + c * 16, emb + (row0 + r) * row_bytes + s0 + c * 16);
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 // A 16-byte cp.async that copies src_bytes (0 or 16) from gmem and fills
@@ -165,16 +141,6 @@ __device__ __forceinline__ void list_insert(float& ls, int& li, float cs, int ci
   }
 }
 
-// Offers one candidate per lane to the warp's sorted list: a candidate
-// enters only if it precedes the list's tail.  An empty slot is (-3.4e38,
-// 0), which no candidate of score -3.4e38 precedes, so masked rows never
-// enter.
-__device__ __forceinline__ void list_offer(float& ls, int& li, float cs, int ci, int lane) {
-  const float ts = __shfl_sync(kFullMask, ls, kListLen - 1);
-  const int ti = __shfl_sync(kFullMask, li, kListLen - 1);
-  list_insert(ls, li, cs, ci, lane, __ballot_sync(kFullMask, precedes(cs, ci, ts, ti)));
-}
-
 // Compare-exchange of one bitonic step between lanes lane and lane ^ d:
 // the lane that should hold the earlier entry (lower lane of a descending
 // block, upper lane of an ascending one) takes its partner's where the
@@ -215,8 +181,10 @@ __device__ __forceinline__ void list_merge(float& ls, int& li, float os, int oi,
   for (int d = kListLen / 2; d > 0; d >>= 1) bitonic_step(ls, li, d, (lane & d) == 0);
 }
 
-// list_offer where many candidates may enter and only the first k entries
-// are wanted: a candidate counts only if it precedes entry `last` = k - 1,
+// Offers one candidate per lane to the warp's sorted list, of which only
+// the first k entries are wanted: a candidate counts only if it precedes
+// entry `last` = k - 1 (an empty slot is (-3.4e38, 0), which no candidate
+// of score -3.4e38 precedes, so masked rows never enter),
 // so the first k entries are exactly the k best offered and those after
 // them are offered pairs in order, which a merge may take in without harm.
 // Up to kInsertMax such candidates are inserted one by one; more are
@@ -248,6 +216,63 @@ __device__ __forceinline__ float order_value(int k) {
   return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
 }
 
+// The streaming searches' seeding pass: the first kSeedRows rows, searched
+// first where more than kSeedMinRows rows are live and a launch has more
+// than kSeedMinQueries queries; each query's k-th score from it starts the
+// thresholds of the full pass.
+constexpr long long kSeedRows = 32768;
+constexpr long long kSeedMinRows = 4 * kSeedRows;
+constexpr int kSeedMinQueries = 8;
+
+// A warp's lists in shared memory, one per query: [n][kListStride] scores,
+// then as many rows, entry j of list q at q * kListStride + j (the stride
+// spreads the lanes' reads of entry k - 1 of several lists over the banks).
+constexpr int kListStride = kListLen + 1;
+
+// Offers each query q of qmask (the same in every lane) the 32 rows row0 +
+// lane of a group, lane j's score score(q) for row row0 + j, to the warp's
+// lists.  thr[q] is the CTA's threshold of query q (an order_key): scores
+// below it, and masked rows, are offered as empty slots, which never
+// enter; each offer then raises it to the list's entry last = k - 1.
+template <typename Score>
+__device__ __forceinline__ void offer_group(unsigned qmask, Score score, float* wls, int* wli,
+                                            int* thr, int row0, int lane, int last) {
+  while (qmask) {
+    const int q = __ffs(qmask) - 1;
+    qmask &= qmask - 1;
+    const float sc = score(q);
+    const bool keep = sc >= order_value(thr[q]) && sc > kStreamNegInf;
+    float ls = wls[q * kListStride + lane];
+    int li = wli[q * kListStride + lane];
+    list_offer_many(ls, li, keep ? sc : kStreamNegInf, keep ? row0 + lane : 0, lane, last);
+    wls[q * kListStride + lane] = ls;
+    wli[q * kListStride + lane] = li;
+    const float ts = __shfl_sync(kFullMask, ls, last);
+    if (lane == 0) atomicMax(thr + q, order_key(ts));
+  }
+}
+
+// Merges a CTA's lists of each query q < nq (warp w's nlists lists at
+// lists + w * stride bytes) into its partial result part[blockIdx.x, q,
+// 32]: warp `warp` of `warps` merges queries warp, warp + warps, ...  Call
+// after a barrier that follows the last offer.
+__device__ __forceinline__ void merge_cta_lists(const uint8_t* lists, int stride, int nlists,
+                                                int warps, int nq, int warp, int lane,
+                                                float* part_s, int* part_i) {
+  for (int q = warp; q < nq; q += warps) {
+    float s = kStreamNegInf;
+    int i = 0;
+    for (int w = 0; w < warps; ++w) {
+      const float* ws = reinterpret_cast<const float*>(lists + w * stride);
+      const int* wi = reinterpret_cast<const int*>(ws + nlists * kListStride);
+      list_merge(s, i, ws[q * kListStride + lane], wi[q * kListStride + lane], lane);
+    }
+    const long long o = (static_cast<long long>(blockIdx.x) * nq + q) * kListLen + lane;
+    part_s[o] = s;
+    part_i[o] = i;
+  }
+}
+
 // Merges [chunks, nq, 32] sorted partial lists into out [nq, k] on
 // `stream` (stream_kernels.cu); returns the launch's cudaError_t.
 int stream_merge(const float* part_s, const int* part_i, int chunks, int nq, int k,
@@ -274,6 +299,25 @@ cudaError_t opt_in_smem(Fn fn, size_t smem, std::atomic<int>* set_on, std::mutex
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
   if (e == cudaSuccess) set_on[dev].store(want, std::memory_order_release);
   return e;
+}
+
+// How many CTAs of fn, at `threads` threads and `smem` bytes of dynamic
+// shared memory (opted in first: opt_in_smem), the current device holds at
+// once, into *held.
+template <typename Fn>
+cudaError_t cta_capacity(Fn fn, int threads, size_t smem, std::atomic<int>* set_on,
+                         std::mutex& mu, long long* held) {
+  cudaError_t e = opt_in_smem(fn, smem, set_on, mu);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *held = static_cast<long long>(sms) * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace dewi

@@ -345,10 +345,9 @@ __host__ __device__ constexpr size_t mma_query_bytes(int kind, int nt, int row_b
 // + g = 4 t + g mod 32.
 constexpr int kSelStride = 36;
 static_assert(4 * kQueryTile * kSelStride * 4 <= kStageBytes, "the tile fits in a stage");
-// The top-k mode's lists, per warp: [QT][kListStride] scores, then as
-// many rows; a stride of 33 spreads the lanes' reads of entry k - 1 of
-// their query columns (8 nt + 2t + e) over the banks.
-constexpr int kListStride = kListLen + 1;
+// The top-k mode's lists, per warp: one per query column (kListStride,
+// common.cuh, spreads the lanes' reads of entry k - 1 of their columns 8 nt
+// + 2t + e over the banks).
 __host__ __device__ constexpr int list_bytes(int nt) {
   return 2 * nt * kQueryTile * kListStride * 4;
 }
@@ -396,15 +395,14 @@ struct TopK {
   const float* seed;
 };
 
-// The seeding pass of the int8 streaming search: its first kSeedRows rows
-// (1024 row groups: one per warp of a full grid) are searched first where
-// the live rows are more than kSeedMinRows and the launch has more than one
-// tile of queries.  Measured on an H100 at 2^20 x 256 with 1M live rows:
-// Q=32 0.279 -> 0.172 ms, Q=16 0.176 -> 0.142, Q=8 0.133 -> 0.130, but Q=1
-// 0.113 -> 0.125 (the pass and its merge cost about 12 us), and seeds of
-// 16,384 or 65,536 rows were no better.
-constexpr long long kSeedRows = 32768;
-constexpr long long kSeedMinRows = 4 * kSeedRows;
+// The seeding pass of the int8 streaming search (its constants are in
+// common.cuh): its first kSeedRows rows (1024 row groups: one per warp of a
+// full grid) are searched first where the live rows are more than
+// kSeedMinRows and the launch has more than one tile of queries.
+// Measured on an H100 at 2^20 x 256 with 1M live rows: Q=32 0.279 ->
+// 0.172 ms, Q=16 0.176 -> 0.142, Q=8 0.133 -> 0.130, but Q=1 0.113 ->
+// 0.125 (the pass and its merge cost about 12 us), and seeds of 16,384 or
+// 65,536 rows were no better.
 
 template <int KIND, int MODE, int NT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
@@ -714,22 +712,8 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
           }
         }
         __syncwarp();
-        while (qmask) {
-          const int q = __ffs(qmask) - 1;
-          qmask &= qmask - 1;
-          // Scores below the CTA's threshold, and masked rows, are offered
-          // as empty slots, which never enter.
-          const float sc = sel[q * kSelStride + lane];
-          const bool keep = sc >= order_value(thr[q]) && sc > kStreamNegInf;
-          float ls = wls[q * kListStride + lane];
-          int li = wli[q * kListStride + lane];
-          list_offer_many(ls, li, keep ? sc : kStreamNegInf,
-                          keep ? static_cast<int>(row0) + lane : 0, lane, last);
-          wls[q * kListStride + lane] = ls;
-          wli[q * kListStride + lane] = li;
-          const float ts = __shfl_sync(kFullMask, ls, last);
-          if (lane == 0) atomicMax(thr + q, order_key(ts));
-        }
+        offer_group(qmask, [&](int q) { return sel[q * kSelStride + lane]; }, wls, wli, thr,
+                    static_cast<int>(row0), lane, last);
       }
 #pragma unroll
       for (int mt = 0; mt < kMTiles; ++mt) {
@@ -801,23 +785,10 @@ stage1_mma_kernel(const uint8_t* __restrict__ emb, int row_bytes,
   }
 
   if constexpr (TOPK) {
-    // Merge the CTA's lists: warp w merges queries w, w + cta_warps, ...
-    // over every warp's list (list_merge) into the CTA's partial result
-    // part[blockIdx.x, q, 32].
+    // Merge the CTA's lists into its partial result part[blockIdx.x, q, 32].
     __syncthreads();
-    for (int q = warp; q < nq; q += cta_warps) {
-      float s = kStreamNegInf;
-      int i = 0;
-      for (int w = 0; w < cta_warps; ++w) {
-        const float* ws = reinterpret_cast<const float*>(smem + qbytes + cta_warps * kRingBytes +
-                                                         w * list_bytes(NT));
-        const int* wi = reinterpret_cast<const int*>(ws + kLists * kListStride);
-        list_merge(s, i, ws[q * kListStride + lane], wi[q * kListStride + lane], lane);
-      }
-      const long long o = (static_cast<long long>(blockIdx.x) * nq + q) * kListLen + lane;
-      tk.part_s[o] = s;
-      tk.part_i[o] = i;
-    }
+    merge_cta_lists(smem + qbytes + cta_warps * kRingBytes, list_bytes(NT), kLists, cta_warps,
+                    nq, warp, lane, tk.part_s, tk.part_i);
   }
 }
 
@@ -839,18 +810,8 @@ cudaError_t ready(int row_bytes, Ready* r) {
   if (r->warps == 0) return cudaErrorInvalidValue;
   r->smem = mma_query_bytes(KIND, NT, row_bytes) + r->warps * warp_bytes(MODE, NT) +
             cta_bytes(MODE, NT);
-  auto fn = stage1_mma_kernel<KIND, MODE, NT>;
-  cudaError_t e = opt_in_smem(fn, r->smem, smem_set_on, smem_mu);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, r->warps * 32, r->smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  r->held = static_cast<long long>(sms) * per_sm;
-  return cudaSuccess;
+  return cta_capacity(stage1_mma_kernel<KIND, MODE, NT>, r->warps * 32, r->smem, smem_set_on,
+                      smem_mu, &r->held);
 }
 
 // A persistent grid: as many CTAs as the card holds at once, or fewer
@@ -1020,7 +981,7 @@ int dewi_int8_stream_search(const int8_t* emb, const float* scales, const float*
   Args a{emb, d, q, nullptr, nullptr, scales, nullptr, nullptr, 0, nq, d, rows, 0, 0};
   TopK tk{pay, n_valid, one_minus_eta, eta, half_ep, k, part_s, part_i, nullptr};
   int ctas = 0, rc = 0;
-  if (live > kSeedMinRows && nq > kQueryTile) {
+  if (live > kSeedMinRows && nq > kSeedMinQueries) {
     // Seed: search the first kSeedRows rows (all live) into out, whose
     // entry k - 1 per query then starts the thresholds of the full pass,
     // so that its warps offer almost nothing from their first rows on.

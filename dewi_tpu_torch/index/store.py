@@ -122,6 +122,10 @@ class DocStore:
     def doc_ids(self) -> List[str]:
         return self._ids
 
+    def index_of(self, doc_id: str) -> Optional[int]:
+        """The row of ``doc_id``, or None for an id the store does not hold."""
+        return self._id_to_idx.get(doc_id)
+
     # ---- mutation ----------------------------------------------------------
 
     def _ensure_capacity(self, n: int) -> None:

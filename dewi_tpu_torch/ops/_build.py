@@ -63,17 +63,19 @@ _SIGNATURES = {
     # s8 queries), d
     "dewi_queries_per_launch": (_I, _I),
     # emb, pay, q, nq, d, cap, n_valid, 1 - eta, eta, entropy_pref / 2, k,
-    # chunks, part_scores, part_ids, out_scores, out_ids, stream
+    # max_ctas (the rows of the partial lists), part_scores, part_ids,
+    # out_scores, out_ids, stream
     "dewi_stream_search": (_P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
                            _P, _P, _P, _P, _P),
-    # emb, scales, then as dewi_stream_search from pay on, with max_ctas
-    # (the rows of the partial lists) in place of chunks
+    # emb, scales, then as dewi_stream_search from pay on
     "dewi_int8_stream_search": (_P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _F, _I, _I,
                                 _P, _P, _P, _P, _P),
     # d
     "dewi_stream_queries_per_launch": (_I,),
     # d
     "dewi_int8_stream_queries_per_launch": (_I,),
+    # nq, d
+    "dewi_stream_max_ctas": (_I, _I),
     # nq, d
     "dewi_int8_stream_max_ctas": (_I, _I),
 }

@@ -40,8 +40,13 @@ rows past ``n_valid`` and keeps each query's best k in per-warp lists (a
 vote skips the selection where no score beats a list's k-th entry or the
 CTA's threshold; above 8 queries a first pass over the first 32,768 rows
 seeds those thresholds); the CTAs' lists are then merged.
-``stream_search`` over f32 rows keeps its one-thread-per-row kernel on the
-CUDA cores.
+``stream_search`` over f32 rows stays on the CUDA cores in f32 (it is the
+recall reference: no TF32, no tensor cores), redesigned in the same shape:
+persistent warps behind their own four-stage ``cp.async`` rings of 4 KB
+slabs (32 rows x 128 bytes), the product register-tiled (each thread 4 rows
+x 8 queries at Q=32, one fmaf per element in the order of the dim, so a
+query's scores do not depend on how many queries ride with it), and the
+same vote, per-warp lists, thresholds, seeding pass and merge.
 
 Each kernel takes only some dims (``kernel_takes``): int8 rows a multiple
 of 16, bf16 rows of 8, packed int4 rows of 32, and on the card as many as
@@ -80,7 +85,7 @@ from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,13 +102,11 @@ MAX_QUERIES = 32  # queries per launch: the kernel keeps them all on chip
 STREAM_NEG_INF = -3.4e38
 BLOCK = 1024
 STREAM_MAX_K = 32       # the kernels keep lists of 32 candidates, one per lane
-# Live rows per CTA of ``stream_search``: 2048 rows give 489 CTAs at 1M
-# rows, which all 132 SMs hold at once.
-STREAM_CHUNK_ROWS = 2048
-# CTAs of ``int8_stream_search``'s persistent grid: None for as many as the
-# card holds at once (fewer where the live rows are fewer), a number for at
-# most that many (the card tests split duplicated rows over warps and CTAs
-# with it).
+# CTAs of the persistent grids of ``stream_search`` and
+# ``int8_stream_search``: None for as many as the card holds at once (fewer
+# where the live rows are fewer), a number for at most that many (the card
+# tests split duplicated rows over warps and CTAs with them).
+STREAM_CTAS: Optional[int] = None
 INT8_STREAM_CTAS: Optional[int] = None
 # Corpus kinds of dewi_queries_per_launch.
 _KIND_INT8, _KIND_BF16, _KIND_S4, _KIND_S8 = 0, 1, 2, 3
@@ -639,6 +642,16 @@ def _stream_scalars(eta: float, entropy_pref: float) -> Tuple[float, float, floa
             float(np.float32(entropy_pref) * np.float32(0.5)))
 
 
+# The streaming searches' library entry points: the search, the queries
+# one launch takes at a dim, the CTAs the card holds of one launch.
+_STREAM_FNS = {
+    "stream_search": ("dewi_stream_search", "dewi_stream_queries_per_launch",
+                      "dewi_stream_max_ctas"),
+    "int8_stream_search": ("dewi_int8_stream_search", "dewi_int8_stream_queries_per_launch",
+                           "dewi_int8_stream_max_ctas"),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _stream_group(fn_name: str, d: int) -> int:
     return int(getattr(_library(), fn_name)(d))
@@ -648,84 +661,65 @@ def stream_queries_per_launch(name: str, d: int) -> int:
     """Queries per launch of the streaming search ``name``
     (``"stream_search"`` or ``"int8_stream_search"``) at dim ``d`` on the
     card: at most ``MAX_QUERIES``, fewer where the kernel's shared memory
-    (staged queries; for the int8 kernel also its rings and top-k lists)
-    does not hold that many, 0 where it holds not even one (one
-    query for ``stream_search``, one tile of 8 for ``int8_stream_search``).
-    The wrapper launches once per group of this many queries."""
-    fn = {"stream_search": "dewi_stream_queries_per_launch",
-          "int8_stream_search": "dewi_int8_stream_queries_per_launch"}[name]
-    return min(_stream_group(fn, d), MAX_QUERIES)
+    (staged queries, and the rings and top-k lists of at least four warps)
+    does not hold that many, 0 where it holds not even one (one query for
+    ``stream_search``, one tile of 8 for ``int8_stream_search``).  The
+    wrapper launches once per group of this many queries."""
+    return min(_stream_group(_STREAM_FNS[name][1], d), MAX_QUERIES)
 
 
 @functools.lru_cache(maxsize=None)
-def _int8_stream_ctas(device: torch.device, nq: int, d: int) -> int:
-    """CTAs the card holds at once of the int8 streaming kernel for ``nq``
-    queries at dim ``d``: the most its persistent grid takes."""
+def _stream_held(name: str, device: torch.device, nq: int, d: int) -> int:
+    """CTAs the card holds at once of the streaming kernel ``name`` for
+    ``nq`` queries at dim ``d``: the most its persistent grid takes."""
     lib = _library()
     with torch.cuda.device(device):
-        n = int(lib.dewi_int8_stream_max_ctas(nq, d))
+        n = int(getattr(lib, _STREAM_FNS[name][2])(nq, d))
     if n <= 0:
-        raise RuntimeError(f"int8_stream_search: no launch configuration at Q={nq}, D={d} "
+        raise RuntimeError(f"{name}: no launch configuration at Q={nq}, D={d} "
                            f"({-n}: {lib.dewi_error_string(-n).decode()})")
     return n
 
 
-def _stream_launch(emb: torch.Tensor, payloads: torch.Tensor, queries: torch.Tensor,
-                   n_valid: int, eta: float, entropy_pref: float, k: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``stream_search`` once per query group: the partial kernel
-    over ``chunks`` CTAs, then the merge, both inside one library call."""
-    name = "stream_search"
+def stream_plan(nq: int, group: int, held: Callable[[int], int],
+                limit: Optional[int]) -> Tuple[range, int]:
+    """The launches of a streaming search of ``nq`` queries, ``group`` at a
+    time (the first query of each), and the rows of its partial lists: the
+    most CTAs any of its launches takes (``held(queries)``: as many as the
+    card holds at once), at most ``limit`` (None: no limit)."""
+    starts = range(0, nq, group)
+    ctas = max(held(min(group, nq - i)) for i in starts)
+    return starts, ctas if limit is None else min(ctas, limit)
+
+
+def _stream_launch(name: str, rows: Tuple[torch.Tensor, ...], payloads: torch.Tensor,
+                   queries: torch.Tensor, n_valid: int, eta: float, entropy_pref: float,
+                   k: int, limit: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streaming search ``name`` over ``rows`` (f32 rows, or
+    int8 rows and their scales) once per query group: its kernel on a
+    persistent grid of at most ``limit`` CTAs (as many as the card holds at
+    once when None), then the merge of their lists, both inside one library
+    call."""
+    emb = rows[0]
     nq, (cap, d) = queries.shape[0], emb.shape
     dev = emb.device
     g = stream_queries_per_launch(name, d)
-    _require(g > 0, f"{name}: dim {d} too wide for one query in shared memory")
-    n_valid = int(n_valid)
-    live = min(max(n_valid, 0), cap)
-    chunks = max(1, -(-live // STREAM_CHUNK_ROWS))
-    part_s = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.float32, device=dev)
-    part_i = torch.empty((chunks, min(g, nq), STREAM_MAX_K), dtype=torch.int32, device=dev)
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    for i in range(0, nq, g):
-        q = queries[i:i + g]
-        _launch(name, "dewi_stream_search", dev, emb.data_ptr(), payloads.data_ptr(),
-                q.data_ptr(), q.shape[0], d, cap, n_valid,
-                *_stream_scalars(eta, entropy_pref), k, chunks, part_s.data_ptr(),
-                part_i.data_ptr(), out_s[i:i + g].data_ptr(), out_i[i:i + g].data_ptr(),
-                _stream(emb))
-    return out_s, out_i
-
-
-def _int8_stream_launch(emb_i8: torch.Tensor, scales: torch.Tensor, payloads: torch.Tensor,
-                        queries: torch.Tensor, n_valid: int, eta: float,
-                        entropy_pref: float, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``int8_stream_search`` once per query group: the tensor-core
-    kernel on a persistent grid of at most ``INT8_STREAM_CTAS`` CTAs (as
-    many as the card holds at once when None), then the merge of their
-    lists, both inside one library call."""
-    name = "int8_stream_search"
-    nq, (cap, d) = queries.shape[0], emb_i8.shape
-    dev = emb_i8.device
-    g = stream_queries_per_launch(name, d)
-    _require(g > 0, f"{name}: dim {d} too wide for one tile of 8 queries in shared memory")
-    _require(INT8_STREAM_CTAS is None or INT8_STREAM_CTAS >= 1,
-             f"{name}: INT8_STREAM_CTAS must be None or at least 1, got {INT8_STREAM_CTAS}")
-    sizes = {min(g, nq - i) for i in range(0, nq, g)}
-    ctas = max(_int8_stream_ctas(dev, s, d) for s in sizes)
-    if INT8_STREAM_CTAS is not None:
-        ctas = min(ctas, INT8_STREAM_CTAS)
+    what = "one query" if name == "stream_search" else "one tile of 8 queries"
+    _require(g > 0, f"{name}: dim {d} too wide for {what} in shared memory")
+    _require(limit is None or limit >= 1,
+             f"{name}: its CTA limit must be None or at least 1, got {limit}")
+    starts, ctas = stream_plan(nq, g, lambda s: _stream_held(name, dev, s, d), limit)
     part_s = torch.empty((ctas, min(g, nq), STREAM_MAX_K), dtype=torch.float32, device=dev)
     part_i = torch.empty((ctas, min(g, nq), STREAM_MAX_K), dtype=torch.int32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    for i in range(0, nq, g):
+    for i in starts:
         q = queries[i:i + g]
-        _launch(name, "dewi_int8_stream_search", dev, emb_i8.data_ptr(), scales.data_ptr(),
+        _launch(name, _STREAM_FNS[name][0], dev, *(t.data_ptr() for t in rows),
                 payloads.data_ptr(), q.data_ptr(), q.shape[0], d, cap, int(n_valid),
                 *_stream_scalars(eta, entropy_pref), k, ctas, part_s.data_ptr(),
                 part_i.data_ptr(), out_s[i:i + g].data_ptr(), out_i[i:i + g].data_ptr(),
-                _stream(emb_i8))
+                _stream(emb))
     return out_s, out_i
 
 
@@ -754,7 +748,8 @@ def stream_search(embeddings: torch.Tensor, payloads: torch.Tensor,
     if embeddings.device.type == "cpu":
         return stream_search_plain(embeddings, payloads, queries, n_valid, eta,
                                    entropy_pref, k)
-    return _stream_launch(embeddings, payloads, queries, n_valid, eta, entropy_pref, k)
+    return _stream_launch(name, (embeddings,), payloads, queries, n_valid, eta, entropy_pref,
+                          k, STREAM_CTAS)
 
 
 def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
@@ -780,14 +775,16 @@ def int8_stream_search(emb_i8: torch.Tensor, scales: torch.Tensor,
     if emb_i8.device.type == "cpu":
         return int8_stream_search_plain(emb_i8, scales, payloads, queries, n_valid, eta,
                                         entropy_pref, k)
-    return _int8_stream_launch(emb_i8, scales, payloads, queries, n_valid, eta,
-                               entropy_pref, k)
+    return _stream_launch(name, (emb_i8, scales), payloads, queries, n_valid, eta,
+                          entropy_pref, k, INT8_STREAM_CTAS)
 
 
 __all__ = [
     "SCORES_BLOCK", "BMAX_BLOCK", "BLOCKMAX_SUB", "MAX_QUERIES", "BLOCK",
     "STREAM_NEG_INF", "STREAM_MAX_K",
+    "STREAM_CTAS", "INT8_STREAM_CTAS",
     "launch_counts", "reset_launch_counts", "kernel_takes", "stream_queries_per_launch",
+    "stream_plan",
     "scores_matrix", "bmax", "scores_matrix_s4", "bmax_s4",
     "scores_matrix_s8", "bmax_s8", "bmax_t", "bmax_s8_t",
     "stream_search", "int8_stream_search",

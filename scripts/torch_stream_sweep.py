@@ -4,9 +4,9 @@
     python3 scripts/torch_stream_sweep.py [--root DIR] [--errors] [--no-check]
 
 On one CUDA card, at cap 2^20 x 256 with 1,000,000 live rows and k = 10
-(the bench protocol's streaming section): ``int8_stream_search`` at Q 1, 2,
-4, 8, 16 and 32 and ``stream_search`` at Q 1, 8 and 32, each beside its
-bound and its library call (``torch.matmul`` + ``torch.topk``), CUDA-event
+(the bench protocol's streaming section): ``int8_stream_search`` and
+``stream_search`` at Q 1, 2, 4, 8, 16 and 32, each beside its bound and
+its library call (``torch.matmul`` + ``torch.topk``), CUDA-event
 medians of 50 (``chip_smoke.stream_cases``), after holding each result
 against its plain version (scores within 1e-5, ids equal where the scores
 stand apart, ``chip_smoke.compare_topk``).
@@ -33,8 +33,6 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-INT8_Q = (1, 2, 4, 8, 16, 32)
-F32_Q = (1, 8, 32)
 
 
 def main() -> int:
@@ -58,9 +56,9 @@ def main() -> int:
     print(json.dumps({"root": str(Path(args.root).resolve()),
                       "nvcc_seconds": _build.build_seconds}), flush=True)
 
-    x = smoke.stream_inputs(1 << 20, smoke.DIM, max(INT8_Q), seed=0)
-    for name, qs in (("int8_stream_search", INT8_Q), ("stream_search", F32_Q)):
-        for nq in qs:
+    x = smoke.stream_inputs(1 << 20, smoke.DIM, max(smoke.SWEEP_Q), seed=0)
+    for name in smoke.STREAM_KERNELS:
+        for nq in smoke.SWEEP_Q:
             kern, plain, lib, nbytes, ops, peak = smoke.stream_cases(
                 x, nq, smoke.N_LIVE, smoke.K)[name]
             if not args.no_check:

@@ -208,6 +208,29 @@ def test_attach_device_clears_pending_adds():
     assert nv == n and len(s) == n and "ghost" not in s.doc_ids
 
 
+@pytest.mark.parametrize("attach", [False, True])
+def test_index_of_matches_reference(attach):
+    """``DocStore.index_of`` answers as the reference's on the same ids:
+    after ``add``, ``add_batch`` past the first capacity (growth) and,
+    with ``attach``, ``attach_device`` and an add buffered after it; None
+    for an id neither store holds."""
+    from dewi_tpu.index.store import DocStore as JDocStore
+
+    ids, emb, pay, _ = _small(n=1100, d=8)
+    port, ref = DocStore(8, device="cpu"), JDocStore(8)
+    for st, arr in ((port, torch.from_numpy), (ref, jnp.asarray)):
+        st.add("first", emb[0], Payload(dewi=0.5))
+        st.add_batch(ids, emb, pay)
+        if attach:
+            st.attach_device(ids[::-1], arr(emb), arr(pay))
+            st.add("late", emb[1], Payload(dewi=0.25))
+    assert port.capacity == ref.capacity == 2048
+    for d in ["first", "late", "0", "7", "1099", "missing", ""]:
+        assert port.index_of(d) == ref.index_of(d), d
+    assert port.index_of("missing") is None
+    assert port.index_of("1099") == (0 if attach else 1100)
+
+
 # ---- DewiIndex tiers at the fused-route size -------------------------------
 
 

@@ -126,6 +126,18 @@ class TestStreamSearch:
         assert row.index(3) < row.index(900) < row.index(1500)
         assert row.index(40) < row.index(41) and row.index(10) < row.index(700)
 
+    def test_launch_plan(self):
+        """The launches of a streaming search and the rows of its partial
+        lists, from the CTAs the card holds per launch size: the most any
+        launch takes, at most the limit."""
+        held = {32: 132, 16: 132, 8: 264, 1: 264}.__getitem__
+        starts, ctas = cs.stream_plan(40, 32, held, None)  # 32 queries, then 8
+        assert list(starts) == [0, 32] and ctas == 264
+        assert cs.stream_plan(40, 32, held, 3) == (range(0, 40, 32), 3)
+        assert cs.stream_plan(40, 16, held, None) == (range(0, 40, 16), 264)
+        assert cs.stream_plan(32, 32, held, 500) == (range(0, 32, 32), 132)
+        assert cs.stream_plan(1, 32, held, None) == (range(0, 1, 32), 264)
+
     def test_k_and_dtype_limits(self):
         emb, pay, q = setup_arrays(cap=1024, d=32, q=1)
         with pytest.raises(ValueError, match="k must be"):
@@ -246,18 +258,54 @@ def _card_same(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,d,nq,n_valid,k", [
-    (65536, 64, 5, 65000, 10), (65536, 64, 1, 65536, 10), (65536, 64, 32, 60001, 32),
-    (65536, 64, 40, 65000, 10), (4096, 2048, 40, 4000, 10), (65536, 64, 3, 4, 10),
-    (65536, 64, 2, 0, 5), (16384, 100, 7, 16000, 1), (1 << 20, 256, 8, 1_000_000, 10),
+@pytest.mark.parametrize("cap,d,nq,n_valid,k,ctas", [
+    (65536, 64, 5, 65000, 10, None), (65536, 64, 1, 65536, 10, None),
+    (65536, 64, 32, 60001, 32, None), (65536, 64, 40, 65000, 10, None),
+    (4096, 2048, 40, 4000, 10, None), (65536, 64, 3, 4, 10, None), (65536, 64, 2, 0, 5, None),
+    (16384, 100, 7, 16000, 1, None), (1 << 20, 256, 8, 1_000_000, 10, None),
+    # live rows around a thread's 4 rows, a warp's 32-row group and one
+    # round of a CTA's 8 warps (256 rows), and, on a grid of two CTAs,
+    # around one and two rounds of the grid's 16 warps (512 rows)
+    *[(65536, 64, 9, n, 10, None) for n in (3, 4, 5, 31, 32, 33, 255, 256, 257)],
+    *[(65536, 64, 9, n, 10, 2) for n in (511, 512, 513, 1023, 1024, 1025)],
+    # queries around each query tiling (1, 2, 4, 8, 16, 32 per launch) and
+    # two launches, at a dim whose last slab is one 16-byte chunk
+    *[(65536, 100, nq, 60001, 32, None) for nq in (1, 3, 9, 31, 32, 40)],
+    # wide rows: 16 queries a launch, three launches
+    (8192, 2048, 40, 8000, 10, None),
+    # live rows past four seed prefixes, more than 8 queries: a seeding
+    # pass, then the full one
+    (262144, 100, 9, 131073, 10, None), (262144, 64, 33, 262000, 32, 3),
 ])
-def test_card_stream_search(cuda_device, cap, d, nq, n_valid, k):
-    emb, _, _, pay, q = _card_inputs(cuda_device, cap, d, nq)
+def test_card_stream_search(cuda_device, cap, d, nq, n_valid, k, ctas, monkeypatch):
+    monkeypatch.setattr(cs, "STREAM_CTAS", ctas)
+    emb, _, _, pay, q = _card_inputs(cuda_device, cap, d, nq, seed=d + nq)
     group = cs.stream_queries_per_launch("stream_search", d)
+    assert group == (16 if d == 2048 else 32)
     before = cs.launch_counts["stream_search"]
     got = cs.stream_search(emb, pay, q, n_valid, 0.25, 0.1, k=k)
     assert cs.launch_counts["stream_search"] == before + -(-nq // group)
     _card_same(got, cs.stream_search_plain(emb, pay, q, n_valid, 0.25, 0.1, k=k))
+    assert int(got[1].max()) < max(n_valid, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,d,n_valid", [(65536, 256, 65000), (262144, 100, 262000)])
+def test_card_stream_scores_do_not_depend_on_q(cuda_device, cap, d, n_valid):
+    """Each query alone (Q=1) gets, bit for bit, the scores and rows of its
+    row of a Q=32 launch (and of Q=8 and Q=3 launches): every query tiling
+    sums a dot in the order of the dim, and the seeding pass (taken at Q=32
+    past 131,072 live rows) prunes exactly."""
+    emb, _, _, pay, q = _card_inputs(cuda_device, cap, d, 32, seed=d)
+    full = cs.stream_search(emb, pay, q, n_valid, 0.25, 0.1, k=32)
+    for nq in (8, 3, 1):
+        for i in range(0, 32, nq):
+            part = cs.stream_search(emb, pay, q[i:i + nq].contiguous(), n_valid, 0.25, 0.1,
+                                    k=32)
+            torch.cuda.synchronize()
+            assert torch.equal(part[0], full[0][i:i + nq]), (nq, i)
+            assert torch.equal(part[1], full[1][i:i + nq]), (nq, i)
+    _card_same(full, cs.stream_search_plain(emb, pay, q, n_valid, 0.25, 0.1, k=32))
 
 
 @pytest.mark.cuda
@@ -338,11 +386,13 @@ def test_card_int8_ties_around_the_seed(cuda_device, ctas, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk_rows,ctas", [(128, 1), (1024, 3), (1 << 20, None)])
-def test_card_ties_and_chunking(cuda_device, chunk_rows, ctas, monkeypatch):
+@pytest.mark.parametrize("stream_ctas,ctas", [(1, 1), (2, 3), (None, None)])
+def test_card_ties_and_chunking(cuda_device, stream_ctas, ctas, monkeypatch):
     """Duplicated rows: the lower row first, whatever the chunking (the
-    rows per CTA of ``stream_search``, the grid of ``int8_stream_search``)."""
-    monkeypatch.setattr(cs, "STREAM_CHUNK_ROWS", chunk_rows)
+    grids of ``stream_search`` and ``int8_stream_search``: on one CTA rows
+    5, 130 and 8000 fall to warps 0, 4 and 2, on two or three to other
+    warps and CTAs)."""
+    monkeypatch.setattr(cs, "STREAM_CTAS", stream_ctas)
     monkeypatch.setattr(cs, "INT8_STREAM_CTAS", ctas)
     emb, e8, sc, pay, q = _card_inputs(cuda_device, 8192, 64, 4)
     for src, dst in ((5, 8000), (5, 130), (4000, 17)):
