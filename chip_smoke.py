@@ -133,7 +133,22 @@ public entry points:
    ``pp_train_step`` steps); each leg's ms beside one process's, the
    collectives' share and peak memory, only the equalities asserted.  No
    kernel launches here;
-14. one JSON line with every kernel's launches, error and times.
+14. the profilers (``scripts/torch_*``, each ``main(argv)`` in this
+   process, their JSON under ``chiprun_out/profilers/``): the memory-rate
+   probe over 256 MB (every pattern at most 105% of 3.35 TB/s, or the method
+   is at fault), ``torch_profile_index`` at 1M x 256 (1000 queries, 200
+   latency samples) for ``exact`` and ``quantized`` (``recall_vs_exact`` >=
+   0.99), the scan breakdown at 2^20 x 256 with 3 windows a row (every
+   row's profile holding each operation the host issued;
+   ``full_two_stage``'s top-10 scores within 1e-5 of
+   ``DewiIndex(backend="int8", int8_queries=True)`` on the same corpus, and
+   its ids equal wherever the scores differ), the
+   serving profiler at 100,000 docs (4, 16 and 64 client processes for 3 s,
+   then the overload level, which must shed), ``torch_profile_ivf_1m`` at
+   its full size and the recall curve at 262,144 docs with nprobe 1, 8 and
+   32 (the recalls in [0, 1] and not falling with nprobe, and
+   ``shipped_default_ok`` as its curve gives it);
+15. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -3095,11 +3110,145 @@ def phase_model_axis(card: str, device=None, sizes: Optional[dict] = None) -> No
     log(f"model axis phase: {time.perf_counter() - t0:.3f} s (13b launch {wall:.3f} s)")
 
 
-def card_line() -> str:
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60)
-    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "unknown"
+# ---- phase 14: the profilers ----------------------------------------------------
+
+PROBE_MAX_SHARE = 1.05      # of 3.35 TB/s: above it the probe's method is at fault
+PROFILE_RECALL = 0.99       # recall_vs_exact of torch_profile_index's quantized tier
+BREAKDOWN_SCORE_TOL = 1e-5  # full_two_stage's scores against the index's, both f32
+N_CURVE_DOCS = 262_144      # the recall curve here; the 1M curve is the script's own run
+CURVE_NPROBES = (1, 8, 32)
+N_PROFILE_SERVE_DOCS = 100_000
+PROFILE_SERVE_SECONDS = 3.0
+
+
+def run_profiler(name: str, argv: list, out_dir: Path) -> dict:
+    """``scripts/<name>.py``'s ``main(argv)`` in this process; its JSON."""
+    import importlib
+
+    out = out_dir / f"{name}.json"
+    t = time.perf_counter()
+    rc = importlib.import_module(name).main(argv + ["--output", str(out)])
+    check(rc == 0, f"profilers: {name} exited {rc}")
+    log(f"profilers {name}: {time.perf_counter() - t:.3f} s")
+    return json.loads(out.read_text())
+
+
+def non_decreasing_recalls(values: list, what: str) -> None:
+    """Recall in [0, 1], not falling as nprobe grows: a larger nprobe probes
+    a superset of the buckets, so an exact top-k doc found stays found."""
+    check(all(0.0 <= v <= 1.0 for v in values), f"{what}: recall out of [0, 1]: {values}")
+    check(all(a <= b for a, b in zip(values, values[1:])), f"{what}: recall fell: {values}")
+
+
+def profile_breakdown_answer(res: dict) -> None:
+    """``full_two_stage``'s top 10 for the breakdown's first query against
+    ``DewiIndex(backend="int8", int8_queries=True)`` on the same corpus:
+    the scores within ``BREAKDOWN_SCORE_TOL`` (the same call on the same
+    inputs) and the same ids wherever the scores differ."""
+    import torch_profile_scan_breakdown as sb
+    from dewi_tpu_torch import DewiIndex
+
+    n, d = res["n_docs"], res["dim"]
+    x = sb.make_inputs(n, d, torch.device("cuda"), res["m"])
+    index = DewiIndex(dim=d, backend="int8", int8_queries=True, device=x["emb"].device)
+    index._backend.store.attach_device([str(i) for i in range(n)], x["emb"], x["pay"])
+    index.build()
+    s, ids = index.search_batch(x["q0"], k=K, eta=sb.ETA, entropy_pref=sb.EP)
+    s, ids = s[0].tolist(), ids[0].tolist()
+    got = res["full_two_stage_top10"]
+    for j, (a, b) in enumerate(zip(got["ids"], ids)):
+        diff = abs(got["scores"][j] - s[j])
+        check(diff <= BREAKDOWN_SCORE_TOL,
+              f"profilers: full_two_stage score {j} is {got['scores'][j]}, the index's {s[j]}")
+        check(a == b or diff <= 1e-6,
+              f"profilers: full_two_stage rank {j} is {a}, the index's {b}")
+    log("profilers breakdown: full_two_stage equals DewiIndex(int8, int8_queries) "
+        f"(scores max |diff| {max(abs(a - b) for a, b in zip(got['scores'], s))}, "
+        f"tolerance {BREAKDOWN_SCORE_TOL})")
+
+
+def phase_profilers(card: str) -> dict:
+    """Phase 14: the ``scripts/torch_*`` profilers in this process (the
+    serving one with its client processes), their JSON under
+    ``chiprun_out/profilers/``; returns this phase's kernel launches."""
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "profilers"
+    cs.reset_launch_counts()
+
+    bw = run_profiler("torch_probe_hbm_bw", ["--mb", "256"], out_dir)
+    for name, row in bw["results"].items():
+        if isinstance(row, dict):
+            log(f"profilers probe {name}: " + json.dumps({**row, "card": card}))
+            check(row["share_of_nominal"] <= PROBE_MAX_SHARE,
+                  f"profilers: probe {name} read {row['gbps']} GB/s, over "
+                  f"{PROBE_MAX_SHARE} of 3.35 TB/s: the method is at fault")
+
+    for backend in ("exact", "quantized"):
+        m = run_profiler("torch_profile_index", [
+            "--n-docs", str(N_DOCS), "--dim", str(DIM), "--n-queries", str(N_QUERIES),
+            "--latency-samples", "200", "--backend", backend], out_dir / backend)
+        log(f"profilers index {backend}: " + json.dumps({**m, "card": card}))
+        if backend == "quantized":
+            check(m["recall_vs_exact"] >= PROFILE_RECALL,
+                  f"profilers: quantized recall_vs_exact {m['recall_vs_exact']}")
+
+    res = run_profiler("torch_profile_scan_breakdown", [
+        "--n-docs", str(1 << 20), "--dim", str(DIM), "--reps", "3"], out_dir)
+    # Each row's device operations (torch.profiler), held complete against
+    # the host's launches: this process is some minutes old, and at that
+    # age the profiler drops the first device events of a session
+    # (launched_kernels opens each session with kernels for it to drop).
+    for name, row in res["results"].items():
+        log(f"profilers breakdown {name}: " + json.dumps(
+            {**{k: row.get(k) for k in ("p50_ms", "spread_ms", "chain", "host_ms", "gbps",
+                                        "l2_resident", "route", "launches", "device_ms",
+                                        "kernels_complete", "profile_lead_lost",
+                                        "same_as")},
+             "device_ops": sum(row["kernels"].values())}))
+        check(row["kernels_complete"] is True,
+              f"profilers: breakdown {name}'s profile lost device events")
+    profile_breakdown_answer(res)
+    torch.cuda.empty_cache()
+
+    sv = run_profiler("torch_profile_serving", [
+        "--n-docs", str(N_PROFILE_SERVE_DOCS), "--clients", "4,16,64",
+        "--seconds", str(PROFILE_SERVE_SECONDS)], out_dir)
+    for level in sv["levels"]:
+        log("profilers serving: " + json.dumps({**level, "card": card}))
+        check(level["requests"] > 0, f"profilers: serving level {level['clients']} answered none")
+    log("profilers serving overload: " + json.dumps({**sv["overload"], "card": card}))
+    check(sv["overload"]["requests"] > 0 and sv["overload"]["shed_429"] >= 1,
+          "profilers: the overload level shed nothing or answered nothing")
+
+    ivf = run_profiler("torch_profile_ivf_1m", [], out_dir)
+    log("profilers ivf 1m: " + json.dumps({**ivf, "card": card}))
+    non_decreasing_recalls([ivf[f"recall_at_k{K}_nprobe{p}"] for p in (8, 16, 32, 64)],
+                           "profilers ivf 1m")
+    torch.cuda.empty_cache()
+
+    curve = run_profiler("torch_profile_ivf_recall_curve", [
+        "--n-docs", str(N_CURVE_DOCS), "--nprobes", ",".join(map(str, CURVE_NPROBES))],
+        out_dir)
+    log("profilers ivf recall curve: " + json.dumps({**curve, "card": card}))
+    keys = [f"nprobe{p}" for p in CURVE_NPROBES]
+    shipped = curve["spill"]["spill0.5"]["recall_curves"]
+    for label, curves in (("no spill", curve["recall_curves"]), ("spill 0.5", shipped)):
+        for fam, row in curves.items():
+            non_decreasing_recalls([row[k] for k in keys], f"profilers curve {label} {fam}")
+    non_decreasing_recalls([curve["recall_boundary_dewi_tier1024"][k] for k in keys],
+                           "profilers curve dewi_tier 1024")
+    check(curve["shipped_gate_curve"] == "spill0.5"
+          and curve["shipped_default_ok"] == all(
+              row[f"nprobe{curve['shipped_default_nprobe']}"] >= 0.99
+              for row in shipped.values()),
+          "profilers: shipped_default_ok disagrees with its curve")
+    torch.cuda.empty_cache()
+    counts = dict(cs.launch_counts)
+    log(f"profilers phase: {time.perf_counter() - t0:.3f} s, launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
 
 
 def main() -> int:
@@ -3114,6 +3263,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import dewi_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from dewi_tpu_torch.ops import _build
+    from dewi_tpu_torch.utils.profiling import card_line
 
     card = card_line()
     log(f"card: {card}")
@@ -3138,6 +3288,8 @@ def main() -> int:
     for name, n in phase_mesh(card).items():
         launches[name] += n
     phase_model_axis(card)
+    for name, n in phase_profilers(card).items():
+        launches[name] += n
 
     line = []
     for name, rec in kernels.items():

@@ -1,1 +1,5 @@
-"""Utilities of the port."""
+"""Utilities of the port: the timing and tracing harness among them."""
+
+from .profiling import Timer, summarize, torch_trace, write_metrics
+
+__all__ = ["Timer", "torch_trace", "summarize", "write_metrics"]

@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -63,13 +62,6 @@ _WORDS = ("entropy", "signal", "image", "caption", "corpus", "index", "query", "
 
 def sync() -> None:
     torch.cuda.synchronize()
-
-
-def card_line() -> str:
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60)
-    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "unknown"
 
 
 def synthetic_texts(n: int, seed: int, lo: int = 1, hi: int = 500) -> list:
@@ -266,6 +258,7 @@ def main() -> int:
     # The whole image corpus may live on the card (80 GB) and in the cache.
     os.environ.setdefault("DEWI_DEVICE_IMAGES_MAX_BYTES", str(48 << 30))
     from dewi_tpu_torch import DewiConfig, DewiPipeline
+    from dewi_tpu_torch.utils.profiling import card_line
 
     card = card_line()
     print(f"card: {card}", flush=True)

@@ -107,6 +107,11 @@ def test_new_modules_are_checked():
         "dewi_tpu_torch/models/moe.py", "dewi_tpu_torch/training/loops.py",
         "dewi_tpu_torch/signals/text_entropy.py"}
     assert model_axis_slice <= names
+    profiling_slice = {"dewi_tpu_torch/utils/profiling.py"} | {
+        f"scripts/torch_{m}.py" for m in (
+            "profile_index", "probe_hbm_bw", "profile_scan_breakdown", "profile_serving",
+            "profile_ivf_1m", "profile_ivf_recall_curve", "profiler_drift")}
+    assert profiling_slice <= names
 
 
 def test_native_build_stays_in_its_directory(tmp_path):
