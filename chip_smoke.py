@@ -147,8 +147,27 @@ public entry points:
    then the overload level, which must shed), ``torch_profile_ivf_1m`` at
    its full size and the recall curve at 262,144 docs with nprobe 1, 8 and
    32 (the recalls in [0, 1] and not falling with nprobe, and
-   ``shipped_default_ok`` as its curve gives it);
-15. one JSON line with every kernel's launches, error and times.
+   ``shipped_default_ok`` as its curve gives it); before them the probe's
+   read-once reduction (``ops.cuda_probe``, ``csrc/probe_kernels.cu``)
+   against its plain version on the 256 MB array (within 1e-6 of
+   sum(|x|)), and the probe's ``reduce_sum_f32`` row, which runs it, at
+   least 80% of ``copy_rw``'s GB/s in the same run;
+15. the integration flow and the signal profilers
+   (``scripts/torch_integration_flow.py``, ``torch_profile_e2e``,
+   ``torch_profile_signals``, ``torch_profile_signals_sharded``, each
+   ``main(argv)`` in this process, their JSON under
+   ``chiprun_out/integration/``): the reference's ``tests/test_integration.py``
+   flow at its sizes (eight sentences, ``tiny`` presets; signals, scores,
+   the quantized index, a text query and eval, sharded exact search as a
+   world of one over NCCL, sampling, 40 ``train_lm`` steps, re-scoring),
+   with the reference's assertions, the text query also at 8,192 and
+   65,536 rows, where it must launch ``scores_matrix`` and ``bmax``; then
+   ``torch_profile_e2e`` at ``--model base`` on 2,048 text docs (the object
+   path within 1e-2 of the columnar one) and on 512 docs with 64-px images,
+   ``torch_profile_signals`` at ``--model base`` (every rate finite and
+   positive, each stage's device and host rows within 1e-2 per doc), and
+   the sharded profiler as a world of one;
+16. one JSON line with every kernel's launches, error and times.
 
 Every check raises on failure, so the script exits non-zero without a
 result line.  The last line is ``{"ok": true, "device": {...}}``.
@@ -199,7 +218,10 @@ REPLACES = {
     "bmax_s8_t": "dewi_tpu/ops/pallas_search.py:793",
     "stream_search": "dewi_tpu/ops/pallas_search.py:129",
     "int8_stream_search": "dewi_tpu/ops/pallas_search.py:239",
+    # no TPU kernel: the reference's row is one XLA fusion
+    "probe_reduce_f32": "none (scripts/probe_hbm_bw.py:113, an XLA fusion)",
 }
+SOURCE = {"stream_search": "stream_kernels.cu", "probe_reduce_f32": "probe_kernels.cu"}
 STREAM_KERNELS = ("stream_search", "int8_stream_search")
 SWEEP_Q = (1, 2, 4, 8, 16, 32)   # query counts of the tensor-core kernels' sweep
 N_LIVE = 1_000_000          # live rows of the streaming kernels' main shape
@@ -408,7 +430,8 @@ def stage1_sweep(x: dict, reps: int = 50) -> dict:
 def phase_kernels() -> dict:
     from dewi_tpu_torch.ops import cuda_search as cs
 
-    out = {name: {"max_abs_err": 0.0} for name in REPLACES if name not in STREAM_KERNELS}
+    out = {name: {"max_abs_err": 0.0} for name in REPLACES
+           if name not in STREAM_KERNELS + ("probe_reduce_f32",)}
     for cap, d, nq in ((1 << 20, DIM, 1), (1 << 20, DIM, 32), (65536, 64, 5),
                        (16384, 2048, 40)):
         x = kernel_inputs(cap, d, nq, seed=cap + nq)
@@ -1460,11 +1483,6 @@ BLUR_RTOL = 1e-5            # 9d: card against CPU, relative
 GATE_EPS = 1e-5             # 9d: a skin-gate input this close to a threshold may flip
 
 
-def col_dev(got: np.ndarray, want: np.ndarray) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
-
-
 def near_skin_gate(imgs: np.ndarray, size: int = 64) -> np.ndarray:
     """Per image, the pixels whose skin-gate inputs lie within GATE_EPS of a
     threshold, in float64 with the resize weights of the noise pass."""
@@ -1528,6 +1546,8 @@ def pipeline_object_leg(pipe, corpus, card: str) -> None:
     """9b: the first docs through the object path (``compute_signals`` ->
     ``compute_dewi_scores`` -> ``build_index``) against the columnar path on
     the same docs, and against their rows of the full run."""
+    from torch_profile_e2e import col_dev
+
     from dewi_tpu_torch import Corpus, Document
     from dewi_tpu_torch.types import SIGNAL_FIELDS
 
@@ -2473,6 +2493,7 @@ def mesh_signals(cfg_dict: dict, sizes: tuple, scan: tuple, device, card: str) -
     """12c: the data-parallel pipeline and scan on four ranks against one
     process on the same card and inputs."""
     import torch_process_corpus as tpc
+    from torch_profile_e2e import col_dev
 
     from dewi_tpu_torch import DewiConfig, DewiPipeline
     from dewi_tpu_torch.signals.redundancy import max_offdiag_similarity
@@ -3113,6 +3134,14 @@ def phase_model_axis(card: str, device=None, sizes: Optional[dict] = None) -> No
 # ---- phase 14: the profilers ----------------------------------------------------
 
 PROBE_MAX_SHARE = 1.05      # of 3.35 TB/s: above it the probe's method is at fault
+# reduce_sum_f32 against copy_rw's GB/s in the same run: a read-only pass
+# reads at least as fast per byte as a copy does on this card
+PROBE_MIN_SHARE_OF_COPY = 0.80
+PROBE_MB = 256
+# Sizes with an n % 16 tail for the probe's sum (the 256 MB array has none).
+# Kernel and plain version both sum the integers exactly and round once to
+# f32, so they must be equal: a dropped partial or tail shows at any size.
+PROBE_RAGGED = (15, 1_000_003, (PROBE_MB << 20) + 7)
 PROFILE_RECALL = 0.99       # recall_vs_exact of torch_profile_index's quantized tier
 BREAKDOWN_SCORE_TOL = 1e-5  # full_two_stage's scores against the index's, both f32
 N_CURVE_DOCS = 262_144      # the recall curve here; the 1M curve is the script's own run
@@ -3167,23 +3196,63 @@ def profile_breakdown_answer(res: dict) -> None:
         f"tolerance {BREAKDOWN_SCORE_TOL})")
 
 
-def phase_profilers(card: str) -> dict:
+def probe_kernel_record() -> dict:
+    """The probe's reduction (``ops.cuda_probe``) equal to its plain version
+    on the probe's 256 MB int8 array and at the ``PROBE_RAGGED`` sizes,
+    timed on the 256 MB array beside its bound and
+    ``x.sum(dtype=torch.float32)``."""
+    from dewi_tpu_torch.ops import cuda_probe
+
+    n_bytes = PROBE_MB << 20
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-127, 128, (n_bytes // DIM, DIM), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    err = 0.0
+    for arr in [x] + [torch.randint(-127, 128, (n,), dtype=torch.int8, device="cuda",
+                                    generator=gen) for n in PROBE_RAGGED]:
+        got = float(cuda_probe.reduce_sum_f32(arr))
+        want = float(cuda_probe.reduce_sum_f32_plain(arr))
+        check(got == want, f"kernel probe_reduce_f32 at {arr.numel()} bytes: {got} "
+                           f"against the plain {want}")
+        err = max(err, abs(got - want))
+    got = float(cuda_probe.reduce_sum_f32(x))
+    bound_ms, bound_by = bound(n_bytes, n_bytes, F32_OPS_PER_S)  # one add a byte, CUDA cores
+    rec = dict(max_abs_err=err, ms=time_device_ms(lambda: cuda_probe.reduce_sum_f32(x)),
+               plain_ms=time_device_ms(lambda: cuda_probe.reduce_sum_f32_plain(x), reps=10),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=time_device_ms(lambda: x.sum(dtype=torch.float32)),
+               bytes=n_bytes, ragged_bytes=list(PROBE_RAGGED), tol=0.0, sum=got)
+    log(f"kernel probe_reduce_f32 {PROBE_MB} MB int8: " + json.dumps(rec))
+    return rec
+
+
+def phase_profilers(card: str) -> tuple:
     """Phase 14: the ``scripts/torch_*`` profilers in this process (the
     serving one with its client processes), their JSON under
-    ``chiprun_out/profilers/``; returns this phase's kernel launches."""
+    ``chiprun_out/profilers/``; returns this phase's kernel launches and
+    the probe reduction's record for the kernels line."""
     from dewi_tpu_torch.ops import cuda_search as cs
 
     t0 = time.perf_counter()
     out_dir = Path(__file__).resolve().parent / "chiprun_out" / "profilers"
+    probe_rec = probe_kernel_record()
+    torch.cuda.empty_cache()
     cs.reset_launch_counts()
 
-    bw = run_profiler("torch_probe_hbm_bw", ["--mb", "256"], out_dir)
+    bw = run_profiler("torch_probe_hbm_bw", ["--mb", str(PROBE_MB)], out_dir)
     for name, row in bw["results"].items():
         if isinstance(row, dict):
             log(f"profilers probe {name}: " + json.dumps({**row, "card": card}))
             check(row["share_of_nominal"] <= PROBE_MAX_SHARE,
                   f"profilers: probe {name} read {row['gbps']} GB/s, over "
                   f"{PROBE_MAX_SHARE} of 3.35 TB/s: the method is at fault")
+    share = bw["results"]["reduce_sum_f32"]["gbps"] / bw["results"]["copy_rw"]["gbps"]
+    log(f"profilers probe reduce_sum_f32 / copy_rw: {share}")
+    check(share >= PROBE_MIN_SHARE_OF_COPY,
+          f"profilers: reduce_sum_f32 read {share:.3f} of copy_rw's GB/s, under "
+          f"{PROBE_MIN_SHARE_OF_COPY}: the row is no memory rate")
+    check(cs.launch_counts["probe_reduce_f32"] > 0,
+          "profilers: the probe's reduce_sum_f32 row launched no probe_reduce_f32")
 
     for backend in ("exact", "quantized"):
         m = run_profiler("torch_profile_index", [
@@ -3248,7 +3317,81 @@ def phase_profilers(card: str) -> dict:
     counts = dict(cs.launch_counts)
     log(f"profilers phase: {time.perf_counter() - t0:.3f} s, launches "
         + json.dumps({k: v for k, v in counts.items() if v}))
-    return counts
+    return counts, probe_rec
+
+
+# ---- phase 15: the integration flow and the signal profilers -------------------
+
+N_E2E_DOCS = 2048           # torch_profile_e2e, text only, object and columnar
+N_E2E_IMAGE_DOCS = 512      # ... with one 64-px image a doc, columnar only
+SIGNALS_ARGS = ["--model", "base", "--n-docs", "1024", "--n-images", "128",
+                "--n-pairs", "256", "--redundancy-n", "65536"]
+SHARDED_ARGS = ["--model", "base", "--n-docs", "1024", "--pipeline-docs", "256"]
+# The text query's capacity -> the stage-1 kernel its route must launch
+ROUTE_KERNEL = {8192: "scores_matrix", 65536: "bmax"}
+
+
+def phase_integration(card: str) -> dict:
+    """Phase 15: the integration flow at the reference's test sizes and the
+    signal profilers at the default widths, in this process; returns the
+    text queries' kernel launches."""
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "integration"
+    fl = run_profiler("torch_integration_flow", [], out_dir)  # exits 1 on a failed assertion
+    log("integration flow: " + json.dumps({k: v for k, v in fl.items()
+                                           if k not in ("signals", "query_vector")}))
+    check(not fl["failures"], f"integration: {fl['failures']}")
+    check(fl["sharded"]["backend"] == "nccl", "integration: the sharded leg did not run on NCCL")
+    launches: collections.Counter = collections.Counter()
+    for leg in [fl["query"]] + fl["query_kernel_routes"]:
+        launches.update(leg["launches"])
+        check(leg["profile_complete"] is True,
+              f"integration: the capacity {leg['capacity']} query's profile lost device events")
+    for leg in fl["query_kernel_routes"]:
+        name = ROUTE_KERNEL[leg["capacity"]]
+        check(leg["launches"].get(name, 0) > 0,
+              f"integration: the text query at capacity {leg['capacity']} launched no {name}")
+    log("integration text-query launches by capacity: " + json.dumps(
+        {leg["capacity"]: leg["launches"] for leg in [fl["query"]] + fl["query_kernel_routes"]}))
+    torch.cuda.empty_cache()
+
+    e2e = run_profiler("torch_profile_e2e", ["--n-docs", str(N_E2E_DOCS), "--model", "base"],
+                       out_dir / "e2e_text")
+    log("integration e2e text: " + json.dumps(e2e))
+    check(e2e["max_rel_dev_object_vs_columnar"] <= PIPE_RTOL,
+          f"integration: the object path is off the columnar one by "
+          f"{e2e['max_rel_dev_object_vs_columnar']}")
+    torch.cuda.empty_cache()
+    e2i = run_profiler("torch_profile_e2e", [
+        "--n-docs", str(N_E2E_IMAGE_DOCS), "--model", "base", "--images", "--image-size", "64",
+        "--clip-image-size", "64", "--skip-object"], out_dir / "e2e_images")
+    log("integration e2e images: " + json.dumps(e2i))
+    for res in (e2e, e2i):
+        check(res["columnar_docs_per_sec"] > 0 and all(
+            v >= 0 for v in res["columnar_stage_s"].values()), "integration: e2e rates")
+    torch.cuda.empty_cache()
+
+    sig = run_profiler("torch_profile_signals", SIGNALS_ARGS, out_dir)
+    log("integration signals: " + json.dumps(sig))
+    for k, v in sig.items():
+        if k.endswith("_per_sec") or k.startswith("full_signals"):
+            check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
+                  f"integration: signals {k} is {v}")
+    for stage in ("text", "image", "clip"):
+        dev = sig[f"{stage}_device_vs_host_max_rel_dev"]
+        check(dev <= PIPE_RTOL, f"integration: signals {stage} device row off the host by {dev}")
+    torch.cuda.empty_cache()
+
+    sh = run_profiler("torch_profile_signals_sharded", SHARDED_ARGS, out_dir)
+    log("integration signals sharded: " + json.dumps(sh))
+    check(sh["backend"] == "nccl" and sh["mesh_devices"] == 1,
+          "integration: the sharded profiler did not run as a world of one over NCCL")
+    check(all(sh[f"{s}_1M_s_per_card"] > 0 for s in ("text", "image", "clip")),
+          "integration: sharded rates")
+    torch.cuda.empty_cache()
+    log(f"integration phase: {time.perf_counter() - t0:.3f} s, launches "
+        + json.dumps(dict(launches)))
+    return dict(launches)
 
 
 def main() -> int:
@@ -3277,25 +3420,22 @@ def main() -> int:
     kernels.update(phase_stream_kernels())
     phase_quickstart()
     phase_off_grid()
-    launches = phase_bench()
-    for name, n in phase_signals(card).items():
-        launches[name] += n
-    for name, n in phase_pipeline(card).items():
-        launches[name] += n
-    for name, n in phase_cli(card).items():
-        launches[name] += n
+    launches = collections.Counter(phase_bench())
+    launches.update(phase_signals(card))
+    launches.update(phase_pipeline(card))
+    launches.update(phase_cli(card))
     phase_training(card)
-    for name, n in phase_mesh(card).items():
-        launches[name] += n
+    launches.update(phase_mesh(card))
     phase_model_axis(card)
-    for name, n in phase_profilers(card).items():
-        launches[name] += n
+    counts, kernels["probe_reduce_f32"] = phase_profilers(card)
+    launches.update(counts)
+    launches.update(phase_integration(card))
 
     line = []
     for name, rec in kernels.items():
-        source = "stream_kernels.cu" if name == "stream_search" else "search_kernels.cu"
+        check(launches[name] > 0, f"kernel {name} was launched no time on the main path")
         line.append({"name": name, "route": "cuda",
-                     "source": f"dewi_tpu_torch/csrc/{source}",
+                     "source": f"dewi_tpu_torch/csrc/{SOURCE.get(name, 'search_kernels.cu')}",
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

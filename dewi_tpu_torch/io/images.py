@@ -121,7 +121,9 @@ def effective_threads(threads: int, sources: Sequence[ImageLike]) -> int:
     ncpu = os.cpu_count() or 1
     if ncpu <= 1:
         return 1
-    if sources and all(isinstance(s, np.ndarray) for s in sources):
+    # len(): a dense [N, H, W, 3] array is a sequence of sources too, and
+    # its truth value is ambiguous (the reference raises there).
+    if len(sources) and all(isinstance(s, np.ndarray) for s in sources):
         return 1
     return max(1, min(int(threads), ncpu))
 

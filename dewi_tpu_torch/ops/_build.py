@@ -1,4 +1,5 @@
-"""Build the search CUDA kernels with nvcc at first use and load them.
+"""Build the CUDA kernels (search, streaming, the probe's reduction) with
+nvcc at first use and load them.
 
 The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
 them (one process per source, all started together) and links one shared
@@ -25,7 +26,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("search_kernels.cu", "stream_kernels.cu")
+SOURCES = ("search_kernels.cu", "stream_kernels.cu", "probe_kernels.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -78,6 +79,9 @@ _SIGNATURES = {
     "dewi_stream_max_ctas": (_I, _I),
     # nq, d
     "dewi_int8_stream_max_ctas": (_I, _I),
+    # x, n, partials, n_ctas, out, stream
+    "dewi_probe_reduce_sum": (_P, _L, _P, _I, _P, _P),
+    "dewi_probe_threads": (),
 }
 
 

@@ -119,6 +119,7 @@ launch_counts: Dict[str, int] = {
     "bmax_s4": 0, "scores_matrix_s4": 0, "bmax": 0, "scores_matrix": 0,
     "bmax_s8": 0, "scores_matrix_s8": 0, "bmax_t": 0, "bmax_s8_t": 0,
     "stream_search": 0, "int8_stream_search": 0,
+    "probe_reduce_f32": 0,  # the probe's reduction (cuda_probe.py), no TPU kernel
 }
 _count_lock = threading.Lock()  # launches may come from several threads
 

@@ -4,11 +4,14 @@
     python3 scripts/torch_probe_hbm_bw.py [--mb 256] [--chain 64] [--reps 5]
 
 Counterpart of ``scripts/probe_hbm_bw.py``: the same read patterns over a
-``--mb`` array, each a plain PyTorch call (what this probe measures is
-exactly those calls), its ms per call and GB/s beside the share of the
-H100's nominal 3.35 TB/s:
+``--mb`` array, each one call (what this probe measures is exactly those
+calls), its ms per call and GB/s beside the share of the H100's nominal
+3.35 TB/s:
 
-  reduce_sum_f32  - ``sum(dtype=float32)`` of an int8 array (read + convert + reduce)
+  reduce_sum_f32  - the f32 sum of an int8 array, read once
+                    (``ops.cuda_probe.reduce_sum_f32``, a CUDA kernel: the
+                    reference's row is one XLA fusion at the memory rate,
+                    which torch's ``x.sum(dtype=torch.float32)`` is not)
   copy_rw         - ``copy_`` into a second int8 array (2x bytes)
   matvec_bf16     - ``torch.matmul`` of ``[1, D]`` with ``[D, N]`` bf16 rows
   matmul128_bf16  - the same with 128 queries (the ``[128, N]`` output is
@@ -54,6 +57,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
+    from dewi_tpu_torch.ops.cuda_probe import reduce_sum_f32
     from dewi_tpu_torch.utils.device import resolve_device
     from dewi_tpu_torch.utils.profiling import card_line, chained_ms, device_name
 
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
     q128 = torch.randn((128, d), device=device, generator=gen).to(torch.bfloat16)
 
     rows = {
-        "reduce_sum_f32": (lambda: x.sum(dtype=torch.float32), n_bytes),
+        "reduce_sum_f32": (lambda: reduce_sum_f32(x), n_bytes),
         "copy_rw": (lambda: y.copy_(x), 2 * n_bytes),
         "matvec_bf16": (lambda: torch.matmul(q1, xb.T), n_bytes),
         "matmul128_bf16": (lambda: torch.matmul(q128, xb.T), n_bytes),

@@ -202,6 +202,21 @@ def _sources(tmp_path):
     return out
 
 
+def test_dense_array_at_another_size_batches():
+    """A dense ``[N, H, W, 3]`` corpus whose resolution is not the batch's
+    goes through the decode path one thread; the reference raises there on
+    the array's truth value (``dewi_tpu/io/images.py:151``), so it is held
+    to the reference's per-image resize of the same rows."""
+    rng = np.random.default_rng(5)
+    dense = rng.integers(0, 256, (7, 20, 20, 3), dtype=np.uint8)
+    assert t_images.effective_threads(4, dense) == 1
+    got = list(t_images.iter_corpus_batches(dense, 16, 4))
+    want = list(j_images.iter_padded_batches(list(dense), 16, 4, threads=1))
+    assert [p for _, p in got] == [p for _, p in want] == [0, 1]
+    for (g, _), (w, _) in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
 def test_decode_batch_and_prefetch(tmp_path, pil_jpeg):
     pytest.importorskip("PIL")
     srcs = _sources(tmp_path)

@@ -112,6 +112,11 @@ def test_new_modules_are_checked():
             "profile_index", "probe_hbm_bw", "profile_scan_breakdown", "profile_serving",
             "profile_ivf_1m", "profile_ivf_recall_curve", "profiler_drift")}
     assert profiling_slice <= names
+    integration_slice = {"dewi_tpu_torch/ops/cuda_probe.py"} | {
+        f"scripts/torch_{m}.py" for m in (
+            "profile_e2e", "profile_signals", "profile_signals_sharded", "profile_tokenize",
+            "profile_tokenize_scaling", "run_all_perf", "integration_flow")}
+    assert integration_slice <= names
 
 
 def test_native_build_stays_in_its_directory(tmp_path):

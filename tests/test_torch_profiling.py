@@ -23,6 +23,10 @@
 * Every profiler refuses to run without a card unless ``--device cpu`` is
   given; card tests time a sleep kernel through ``Timer.span`` and hold
   ``launched_kernels``'s profile to the host's launches.
+* The probe's read-once reduction (``ops.cuda_probe``): its plain version
+  equal to numpy's float64 sum rounded to float32 (both exact sums rounded
+  once) and the wrapper's checks; on the card the kernel equals the plain
+  version bit for bit at ragged sizes.
 
 The port runs on the CPU, the reference under ``JAX_PLATFORMS=cpu``; the
 reference's scripts are loaded from their files and run with
@@ -43,9 +47,15 @@ from dewi_tpu_torch import utils as tutils
 from dewi_tpu_torch.utils import profiling as tprof
 
 ROOT = Path(__file__).resolve().parent.parent
+# The profilers that run on the card (the tokenize profiles are CPU only,
+# and torch_run_all_perf.py runs these as subprocesses).
 SCRIPTS = ("torch_profile_index", "torch_probe_hbm_bw", "torch_profile_scan_breakdown",
            "torch_profile_serving", "torch_profile_ivf_1m", "torch_profile_ivf_recall_curve",
-           "torch_profiler_drift")
+           "torch_profiler_drift", "torch_profile_e2e", "torch_profile_signals",
+           "torch_profile_signals_sharded")
+# The probe's sum against numpy's float64 sum rounded to float32: the
+# plain version sums exactly in float64 and rounds once, so they are equal
+PROBE_SUM_TOL = 0.0
 
 
 def _jprof():
@@ -436,3 +446,39 @@ def test_card_span_waits_for_the_device():
         torch.cuda._sleep(cycles)
         out.append(torch.ones(1, device="cuda"))
     assert t.spans["sleep"][0] >= sleep_ms > 10.0
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4099, 1 << 16])
+def test_probe_reduction_plain_matches_numpy(n):
+    from dewi_tpu_torch.ops import cuda_probe
+
+    x = np.random.default_rng(n).integers(-128, 128, n).astype(np.int8)
+    got = cuda_probe.reduce_sum_f32(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    want = np.float32(x.astype(np.float64).sum())
+    assert abs(float(got) - float(want)) <= PROBE_SUM_TOL * max(np.abs(x).sum(), 1)
+
+
+def test_probe_reduction_checks():
+    from dewi_tpu_torch.ops import cuda_probe
+
+    with pytest.raises(ValueError, match="int8"):
+        cuda_probe.reduce_sum_f32(torch.zeros(8, dtype=torch.int16))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_probe.reduce_sum_f32(torch.zeros((8, 8), dtype=torch.int8).T)
+
+
+@pytest.mark.cuda
+def test_card_probe_reduction_equals_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dewi_tpu_torch.ops import cuda_probe
+    from dewi_tpu_torch.ops import cuda_search as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in (0, 1, 15, 17, 4099, (1 << 20) + 5, 64 << 20):
+        x = torch.randint(-128, 128, (n,), dtype=torch.int8, device="cuda", generator=gen)
+        before = cs.launch_counts["probe_reduce_f32"]
+        got = cuda_probe.reduce_sum_f32(x)
+        assert cs.launch_counts["probe_reduce_f32"] == before + 1
+        assert float(got) == float(cuda_probe.reduce_sum_f32_plain(x)), n
