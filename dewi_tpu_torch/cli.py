@@ -251,7 +251,7 @@ def cmd_process(args: argparse.Namespace) -> int:
         from .config import DewiConfig
         from .pipelines import DewiPipeline
         from .utils.device import resolve_device
-        from .utils.profiling import torch_trace
+        from .utils.profiling import reset_trace_stats, torch_trace, trace_stats, write_metrics
 
         out = Path(args.output_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -290,6 +290,7 @@ def cmd_process(args: argparse.Namespace) -> int:
             shard_size = cfg.runtime.shard_size
 
         trace = torch_trace(str(out / "profile")) if cfg.runtime.profile else nullcontext()
+        reset_trace_stats()
         corpus = None
         with trace:
             if shard_size:
@@ -315,7 +316,8 @@ def cmd_process(args: argparse.Namespace) -> int:
                                         mode=cfg.scoring.mode, progress=True)
                 docs = corpus.apply_to_documents(documents)
         if cfg.runtime.profile:
-            echo(f"✓ torch.profiler trace written to {out / 'profile'}")
+            write_metrics(trace_stats(), out / "profile" / "spans.json")
+            echo(f"✓ torch.profiler trace written to {out / 'profile'} (spans in spans.json)")
         _save_results(docs, out)
         index = (pipeline.build_index_corpus(corpus) if corpus is not None
                  else pipeline.build_index(docs))

@@ -194,8 +194,8 @@ class RuntimeConfig:
     ``checkpoint_every``: docs between checkpoint flushes (0 = off); forces
     sharded processing with per-shard stage checkpoints under
     ``<out>/checkpoints``.
-    ``profile``: wrap processing in a profiler trace written to
-    ``<out>/profile`` (read by the reference's CLI; the port has no CLI yet).
+    ``profile``: wrap processing in ``torch.profiler``: a Chrome trace and
+    the program's spans and counters (``spans.json``) under ``<out>/profile``.
     ``decode_cache_mb``: RAM budget for the decode-once image cache (uint8,
     shared by every signal stage — see :class:`dewi_tpu_torch.io.ImageCache`);
     corpora whose decoded size exceeds it stream through the prefetching

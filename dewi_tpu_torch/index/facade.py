@@ -26,6 +26,7 @@ import torch
 
 from ..types import Payload
 from ..utils.device import DeviceLike
+from ..utils.profiling import span
 from .base import BaseIndex
 from .exact import ExactIndex
 from .ivf import IVFIndex
@@ -135,12 +136,14 @@ class DewiIndex:
     def search_batch(self, queries: Any, k: int = 10, eta: Optional[float] = None,
                      entropy_pref: Optional[float] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[Q, D]`` -> ([Q, k] scores, [Q, k] row indices) on the device."""
-        if not self._built:
-            self.build()
-        eta = self.rerank_eta if eta is None else eta
-        entropy_pref = self.entropy_pref if entropy_pref is None else entropy_pref
-        return self._backend.search_batch(queries, k, eta, entropy_pref)
+        """``[Q, D]`` -> ([Q, k] scores, [Q, k] row indices) on the device
+        (the span ``dewi.search_batch`` while a profiler records)."""
+        with span("dewi.search_batch"):
+            if not self._built:
+                self.build()
+            eta = self.rerank_eta if eta is None else eta
+            entropy_pref = self.entropy_pref if entropy_pref is None else entropy_pref
+            return self._backend.search_batch(queries, k, eta, entropy_pref)
 
     # -- accessors ----------------------------------------------------------------
 

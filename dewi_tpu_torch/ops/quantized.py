@@ -14,6 +14,10 @@ is not a multiple of 16384 rows), else in plain PyTorch where it ran XLA.
 One routing difference, which changes no result of the TPU route: the
 TPU's ``lax.approx_max_k`` candidate select becomes an exact
 ``torch.topk``.
+
+While a ``torch.profiler`` session records, each search names its stages
+as spans (``dewi.search.fold``, ``.stage1``, ``.select``, ``.refine``, and
+``dewi.search.group`` for each 32-query group of the chunked route).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_search
 from .cuda_search import BLOCKMAX_SUB
 from .similarity import NEG_INF, Scalar, f32_scalar, folded_dot, l2_normalize, s8_folded_dot
@@ -121,24 +126,25 @@ def quantized_search(
     """
     device = emb_i8.device
     int4_grid = int4_packed  # the wider margins follow the values, not the layout
-    q = queries.to(torch.float32).contiguous()
-    if normalize:
-        q = l2_normalize(q)
-    eta_t = f32_scalar(eta, device)
-    ep_t = f32_scalar(entropy_pref, device)
+    with span("dewi.search.fold"):
+        q = queries.to(torch.float32).contiguous()
+        if normalize:
+            q = l2_normalize(q)
+        eta_t = f32_scalar(eta, device)
+        ep_t = f32_scalar(entropy_pref, device)
 
-    # Fold: adj = acc * mult + add, with the dequant scale, (1-eta), the
-    # re-rank, the L2 row norm and the validity mask in mult/add.  The L2
-    # per-query constant -(1-eta)|q|^2 is omitted: stage-1 values are only
-    # used for selection, and stage 2 recomputes the scores exactly.
-    ent = 0.5 * (payloads[:, 1] + payloads[:, 3])
-    one_m_eta = 1.0 - eta_t
-    add = eta_t * payloads[:, 0] + ep_t * ent
-    if normalize:
-        mult = one_m_eta * scales
-    else:
-        mult = 2.0 * one_m_eta * scales
-        add = add - one_m_eta * sqnorms
+        # Fold: adj = acc * mult + add, with the dequant scale, (1-eta), the
+        # re-rank, the L2 row norm and the validity mask in mult/add.  The L2
+        # per-query constant -(1-eta)|q|^2 is omitted: stage-1 values are
+        # only used for selection, and stage 2 recomputes the scores exactly.
+        ent = 0.5 * (payloads[:, 1] + payloads[:, 3])
+        one_m_eta = 1.0 - eta_t
+        add = eta_t * payloads[:, 0] + ep_t * ent
+        if normalize:
+            mult = one_m_eta * scales
+        else:
+            mult = 2.0 * one_m_eta * scales
+            add = add - one_m_eta * sqnorms
     nq, cap = q.shape[0], emb_i8.shape[0]
     blockmax_ok = (blockmax_select and cap % BLOCKMAX_SUB == 0
                    and cap >= 4 * BLOCKMAX_SUB)
@@ -171,98 +177,103 @@ def quantized_search(
         n_groups = -(-nq // g)
         pad_rows = n_groups * g - nq
         qpad = torch.cat([q, q[:1].expand(pad_rows, q.shape[1])]) if pad_rows else q
-        outs = [
-            quantized_search(
-                emb_i8, scales, emb_f32, sqnorms, payloads,
-                qpad[i * g:(i + 1) * g], n_valid, eta_t, ep_t, k=k, m=m,
-                normalize=normalize, kernel_stage1=True,
-                kernel_block=kernel_block, int8_queries=int8_queries,
-                bf16_scores=bf16_scores, blockmax_select=True,
-                fused_bmax=True, int4_packed=int4_packed,
-            )
-            for i in range(n_groups)
-        ]
+        outs = []
+        for i in range(n_groups):
+            with span("dewi.search.group"):
+                outs.append(quantized_search(
+                    emb_i8, scales, emb_f32, sqnorms, payloads,
+                    qpad[i * g:(i + 1) * g], n_valid, eta_t, ep_t, k=k, m=m,
+                    normalize=normalize, kernel_stage1=True,
+                    kernel_block=kernel_block, int8_queries=int8_queries,
+                    bf16_scores=bf16_scores, blockmax_select=True,
+                    fused_bmax=True, int4_packed=int4_packed,
+                ))
         return (torch.cat([o[0] for o in outs])[:nq],
                 torch.cat([o[1] for o in outs])[:nq])
 
-    valid = torch.arange(cap, device=device) < n_valid
-    if bf16_scores and not use_fused:
-        # Centre the additive term on its valid-row mean (a per-query
-        # invariant shift) so bf16 keeps the small score differences.
-        denom = max(float(n_valid), 1.0)
-        add = add - torch.sum(torch.where(valid, add, torch.zeros_like(add))) / denom
-    add = torch.where(valid, add, torch.full_like(add, NEG_INF))
+    with span("dewi.search.fold"):
+        valid = torch.arange(cap, device=device) < n_valid
+        if bf16_scores and not use_fused:
+            # Centre the additive term on its valid-row mean (a per-query
+            # invariant shift) so bf16 keeps the small score differences.
+            denom = max(float(n_valid), 1.0)
+            add = add - torch.sum(torch.where(valid, add, torch.zeros_like(add))) / denom
+        add = torch.where(valid, add, torch.full_like(add, NEG_INF))
     out_dtype = torch.bfloat16 if bf16_scores else torch.float32
 
     adj1: Optional[torch.Tensor] = None
     bmax: Optional[torch.Tensor] = None
-    if use_fused:
-        if int4_packed:
-            q_i8, q_scale = quantize_rows(q)
-            bmax = cuda_search.bmax_s4(emb_i8, mult, add, q_i8, q_scale)
-        elif int8_queries:
-            q_i8, q_scale = quantize_rows(q)
-            if t_layout:
-                bmax = cuda_search.bmax_s8_t(emb_i8, mult, add, q_i8, q_scale).T
+    with span("dewi.search.stage1"):
+        if use_fused:
+            if int4_packed:
+                q_i8, q_scale = quantize_rows(q)
+                bmax = cuda_search.bmax_s4(emb_i8, mult, add, q_i8, q_scale)
+            elif int8_queries:
+                q_i8, q_scale = quantize_rows(q)
+                if t_layout:
+                    bmax = cuda_search.bmax_s8_t(emb_i8, mult, add, q_i8, q_scale).T
+                else:
+                    bmax = cuda_search.bmax_s8(emb_i8, mult, add, q_i8, q_scale)
+            elif t_layout:
+                bmax = cuda_search.bmax_t(emb_i8, mult, add, q).T
             else:
-                bmax = cuda_search.bmax_s8(emb_i8, mult, add, q_i8, q_scale)
-        elif t_layout:
-            bmax = cuda_search.bmax_t(emb_i8, mult, add, q).T
+                bmax = cuda_search.bmax(emb_i8, mult, add, q)
+        elif kernel_stage1 and int8_queries:
+            q_i8, q_scale = quantize_rows(q)
+            kernel = (cuda_search.scores_matrix_s4 if int4_packed
+                      else cuda_search.scores_matrix_s8)
+            adj1 = kernel(emb_i8, mult, add, q_i8, q_scale, out_dtype=out_dtype)
+        elif kernel_stage1:
+            adj1 = cuda_search.scores_matrix(emb_i8, mult, add, q, out_dtype=out_dtype)
+        elif int8_queries:
+            # The s8 x s8 dot, exact as JAX's int32 accumulator.
+            q_i8, q_scale = quantize_rows(q)
+            adj1 = s8_folded_dot(q_i8, emb_i8, q_scale, mult, add, out_dtype)
         else:
-            bmax = cuda_search.bmax(emb_i8, mult, add, q)
-    elif kernel_stage1 and int8_queries:
-        q_i8, q_scale = quantize_rows(q)
-        kernel = cuda_search.scores_matrix_s4 if int4_packed else cuda_search.scores_matrix_s8
-        adj1 = kernel(emb_i8, mult, add, q_i8, q_scale, out_dtype=out_dtype)
-    elif kernel_stage1:
-        adj1 = cuda_search.scores_matrix(emb_i8, mult, add, q, out_dtype=out_dtype)
-    elif int8_queries:
-        # The s8 x s8 dot, exact as JAX's int32 accumulator.
-        q_i8, q_scale = quantize_rows(q)
-        adj1 = s8_folded_dot(q_i8, emb_i8, q_scale, mult, add, out_dtype)
-    else:
-        adj1 = folded_dot(q.to(torch.bfloat16).float(), emb_i8, mult, add, out_dtype)
+            adj1 = folded_dot(q.to(torch.bfloat16).float(), emb_i8, mult, add, out_dtype)
 
     d = emb_f32.shape[1]
-    if blockmax_ok:
-        nb = cap // BLOCKMAX_SUB
-        margin = 2 * (k + 2) if int4_grid else k + 2
-        s = min(nb, max(margin, -(-m // BLOCKMAX_SUB)))
-        if bmax is None:
-            assert adj1 is not None
-            bmax = adj1.view(nq, nb, BLOCKMAX_SUB).amax(dim=-1)
-        _, bid = torch.topk(bmax, s, dim=1)
-        offs = torch.arange(BLOCKMAX_SUB, device=device, dtype=bid.dtype)
-        cand = (bid[:, :, None] * BLOCKMAX_SUB + offs).reshape(nq, s * BLOCKMAX_SUB)
-        if nq > BLOCKMAX_REFINE_MAX_Q:
-            assert adj1 is not None
-            cs = torch.gather(
-                adj1.view(nq, nb, BLOCKMAX_SUB), 1,
-                bid[:, :, None].expand(nq, s, BLOCKMAX_SUB),
-            ).reshape(nq, s * BLOCKMAX_SUB).float()
-            _, pos1 = torch.topk(cs, m, dim=1)
-            cand = torch.gather(cand, 1, pos1)
-            ce, cp, csq = emb_f32[cand], payloads[cand], sqnorms[cand]
+    with span("dewi.search.select"):
+        if blockmax_ok:
+            nb = cap // BLOCKMAX_SUB
+            margin = 2 * (k + 2) if int4_grid else k + 2
+            s = min(nb, max(margin, -(-m // BLOCKMAX_SUB)))
+            if bmax is None:
+                assert adj1 is not None
+                bmax = adj1.view(nq, nb, BLOCKMAX_SUB).amax(dim=-1)
+            _, bid = torch.topk(bmax, s, dim=1)
+            offs = torch.arange(BLOCKMAX_SUB, device=device, dtype=bid.dtype)
+            cand = (bid[:, :, None] * BLOCKMAX_SUB + offs).reshape(nq, s * BLOCKMAX_SUB)
+            if nq > BLOCKMAX_REFINE_MAX_Q:
+                assert adj1 is not None
+                cs = torch.gather(
+                    adj1.view(nq, nb, BLOCKMAX_SUB), 1,
+                    bid[:, :, None].expand(nq, s, BLOCKMAX_SUB),
+                ).reshape(nq, s * BLOCKMAX_SUB).float()
+                _, pos1 = torch.topk(cs, m, dim=1)
+                cand = torch.gather(cand, 1, pos1)
+                ce, cp, csq = emb_f32[cand], payloads[cand], sqnorms[cand]
+            else:
+                # Block-granular gather: s contiguous 128-row blocks per query.
+                ce = emb_f32.view(nb, BLOCKMAX_SUB, d)[bid].reshape(nq, s * BLOCKMAX_SUB, d)
+                cp = payloads.view(nb, BLOCKMAX_SUB, -1)[bid].reshape(
+                    nq, s * BLOCKMAX_SUB, payloads.shape[1])
+                csq = sqnorms.view(nb, BLOCKMAX_SUB)[bid].reshape(nq, -1)
         else:
-            # Block-granular gather: s contiguous 128-row blocks per query.
-            ce = emb_f32.view(nb, BLOCKMAX_SUB, d)[bid].reshape(nq, s * BLOCKMAX_SUB, d)
-            cp = payloads.view(nb, BLOCKMAX_SUB, -1)[bid].reshape(
-                nq, s * BLOCKMAX_SUB, payloads.shape[1])
-            csq = sqnorms.view(nb, BLOCKMAX_SUB)[bid].reshape(nq, -1)
-    else:
-        assert adj1 is not None
-        _, cand = torch.topk(adj1, m, dim=1)
-        ce, cp, csq = emb_f32[cand], payloads[cand], sqnorms[cand]
+            assert adj1 is not None
+            _, cand = torch.topk(adj1, m, dim=1)
+            ce, cp, csq = emb_f32[cand], payloads[cand], sqnorms[cand]
 
     # Stage 2: exact f32 over the gathered candidates only.
-    sim2 = torch.einsum("qd,qmd->qm", q, ce.to(torch.float32))
-    if not normalize:
-        sim2 = 2.0 * sim2 - csq - torch.sum(q * q, dim=-1, keepdim=True)
-    adj2 = (one_m_eta * sim2 + eta_t * cp[..., 0]
-            + ep_t * 0.5 * (cp[..., 1] + cp[..., 3]))
-    adj2 = torch.where(cand < n_valid, adj2, torch.full_like(adj2, NEG_INF))
-    scores, pos = torch.topk(adj2, k, dim=1)
-    return scores, torch.gather(cand, 1, pos)
+    with span("dewi.search.refine"):
+        sim2 = torch.einsum("qd,qmd->qm", q, ce.to(torch.float32))
+        if not normalize:
+            sim2 = 2.0 * sim2 - csq - torch.sum(q * q, dim=-1, keepdim=True)
+        adj2 = (one_m_eta * sim2 + eta_t * cp[..., 0]
+                + ep_t * 0.5 * (cp[..., 1] + cp[..., 3]))
+        adj2 = torch.where(cand < n_valid, adj2, torch.full_like(adj2, NEG_INF))
+        scores, pos = torch.topk(adj2, k, dim=1)
+        return scores, torch.gather(cand, 1, pos)
 
 
 __all__ = [

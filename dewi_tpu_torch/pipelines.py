@@ -23,6 +23,11 @@ the redundancy stage and the robust-statistics fit see the gathered
 signals, so every rank ends with the same signals and scores as one
 device would.  The index handoff and every file write happen on rank 0,
 while the other ranks wait at a barrier.
+
+While a ``torch.profiler`` session records, the columnar path names its
+calls and stages as spans (``dewi.process_corpus``, ``dewi.text_entropy``,
+... ``dewi.index.build``; ``utils.profiling.span``), which never
+synchronise the device.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from .config import DewiConfig
 from .types import SIGNAL_FIELDS, Payload, Weights
 from .utils.device import DeviceLike
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -911,9 +917,10 @@ class DewiPipeline:
         if tidx.size:
             m = ProgressMeter(int(tidx.size), "text entropy",
                               enabled=progress)
-            means, q90s, _ = self.text_entropy.batch_compute_stats(
-                [corpus.texts[i] for i in tidx], progress=m.update
-            )
+            with span("dewi.text_entropy"):
+                means, q90s, _ = self.text_entropy.batch_compute_stats(
+                    [corpus.texts[i] for i in tidx], progress=m.update
+                )
             m.close()
             sig[tidx, COL["ht_mean"]] = means
             sig[tidx, COL["ht_q90"]] = q90s
@@ -932,12 +939,13 @@ class DewiPipeline:
         if iidx.size:
             m = ProgressMeter(int(iidx.size), "image entropy",
                               enabled=progress)
-            means, q90s = self.image_entropy.batch_compute_stats(
-                self._corpus_rows(corpus, iidx,
-                                  self.image_entropy.image_size, cache,
-                                  dev=dev),
-                progress=m.update,
-            )
+            with span("dewi.image_entropy"):
+                means, q90s = self.image_entropy.batch_compute_stats(
+                    self._corpus_rows(corpus, iidx,
+                                      self.image_entropy.image_size, cache,
+                                      dev=dev),
+                    progress=m.update,
+                )
             m.close()
             sig[iidx, COL["hi_mean"]] = means
             sig[iidx, COL["hi_q90"]] = q90s
@@ -969,19 +977,21 @@ class DewiPipeline:
             else:
                 t_want, v_want = tidx, iidx
             if t_want.size:
-                t_emb = self.cross_modal.encode_texts(
-                    [corpus.texts[i] for i in t_want]
-                )
+                with span("dewi.cross_modal.text"):
+                    t_emb = self.cross_modal.encode_texts(
+                        [corpus.texts[i] for i in t_want]
+                    )
                 tpos = {int(i): j for j, i in enumerate(t_want)}
             if v_want.size:
                 m = ProgressMeter(int(v_want.size), "cross-modal encode",
                                   enabled=progress)
-                v_emb = self.cross_modal.encode_images(
-                    self._corpus_rows(corpus, v_want,
-                                      self.cross_modal.cfg.image_size,
-                                      cache, dev=dev),
-                    progress=m.update,
-                )
+                with span("dewi.cross_modal.image"):
+                    v_emb = self.cross_modal.encode_images(
+                        self._corpus_rows(corpus, v_want,
+                                          self.cross_modal.cfg.image_size,
+                                          cache, dev=dev),
+                        progress=m.update,
+                    )
                 m.close()
                 vpos = {int(i): j for j, i in enumerate(v_want)}
         if pidx.size:
@@ -991,17 +1001,20 @@ class DewiPipeline:
                 t_emb[trows] * v_emb[vrows], axis=1
             )
 
-        self.ensure_embeddings_corpus(
-            corpus, cache=cache, dev=dev,
-            _t_emb=t_emb if need_emb else None,
-            _v_emb=v_emb if need_emb else None,
-            _t_idx=t_want if need_emb else None,
-            _v_idx=v_want if need_emb else None,
-        )
+        with span("dewi.embeddings"):
+            self.ensure_embeddings_corpus(
+                corpus, cache=cache, dev=dev,
+                _t_emb=t_emb if need_emb else None,
+                _v_emb=v_emb if need_emb else None,
+                _t_idx=t_want if need_emb else None,
+                _v_idx=v_want if need_emb else None,
+            )
         if include_redundancy:
-            self._redundancy_corpus(corpus, cache=cache)
-        return self._noise_corpus(corpus, cache=cache, dev=dev,
-                                  progress=progress)
+            with span("dewi.redundancy"):
+                self._redundancy_corpus(corpus, cache=cache)
+        with span("dewi.noise"):
+            return self._noise_corpus(corpus, cache=cache, dev=dev,
+                                      progress=progress)
 
     def ensure_embeddings_corpus(self, corpus: Any, cache: Any = None,
                                  dev: Any = None,
@@ -1191,16 +1204,18 @@ class DewiPipeline:
                        mode: Optional[str] = None,
                        progress: bool = False) -> Any:
         """Signals + fused fit-and-score, columnar end to end."""
-        self.compute_signals_corpus(corpus, progress=progress)
-        return self._score_corpus(corpus, weights, delta, mode)
+        with span("dewi.process_corpus"):
+            self.compute_signals_corpus(corpus, progress=progress)
+            return self._score_corpus(corpus, weights, delta, mode)
 
     def _score_corpus(self, corpus: Any, weights: Any, delta: Optional[float],
                       mode: Optional[str]) -> Any:
         """One fused fit+score over ``corpus.signals`` into ``corpus.dewi``."""
-        scorer = self._make_scorer(weights, delta)
-        corpus.dewi = scorer.fit_and_score(
-            corpus.signals, mode=mode or self.config.scoring.mode
-        ).cpu().numpy().astype(np.float32)
+        with span("dewi.score"):
+            scorer = self._make_scorer(weights, delta)
+            corpus.dewi = scorer.fit_and_score(
+                corpus.signals, mode=mode or self.config.scoring.mode
+            ).cpu().numpy().astype(np.float32)
         self._scorer = scorer
         return corpus
 
@@ -1401,7 +1416,8 @@ class DewiPipeline:
         )
         # Cross-document stage LAST and GLOBAL (identical to the
         # monolithic path — shard boundaries must not hide duplicates).
-        self._redundancy_corpus(corpus)
+        with span("dewi.redundancy"):
+            self._redundancy_corpus(corpus)
         return self._score_corpus(corpus, weights, delta, mode)
 
     def build_index_corpus(self, corpus: Any,
@@ -1410,27 +1426,29 @@ class DewiPipeline:
         Python.  Under a mesh: rank 0's index, ``None`` on the other ranks."""
         if len(corpus) == 0:
             raise ValueError("No documents to index")
-        self.ensure_embeddings_corpus(corpus)
-        return _on_rank0(self.mesh, lambda: self._index_corpus(corpus, **index_kwargs))
+        with span("dewi.build_index_corpus"):
+            self.ensure_embeddings_corpus(corpus)
+            return _on_rank0(self.mesh, lambda: self._index_corpus(corpus, **index_kwargs))
 
     def _index_corpus(self, corpus: Any, **index_kwargs: Any) -> Any:
-        index = self._make_index(dim=int(corpus.embeddings.shape[1]),
-                                 **index_kwargs)
-        filled = getattr(corpus, "clip_filled_mask", None)
-        if getattr(corpus, "clip_embedded", False):
-            index.encoder = {"source": "cross_modal",
-                             **self.encoder_provenance()}
-        elif filled is not None and bool(filled.any()):
-            # Some rows external, some CLIP-filled — same "mixed" provenance
-            # the object path records (build_index below).
-            index.encoder = {"source": "mixed", **self.encoder_provenance()}
-        else:
-            index.encoder = {"source": "external"}
-        index.add_batch(list(corpus.ids),
-                        np.asarray(corpus.embeddings, np.float32),
-                        corpus.payload_matrix())
-        index.build()
-        return index
+        with span("dewi.index.build"):
+            index = self._make_index(dim=int(corpus.embeddings.shape[1]),
+                                     **index_kwargs)
+            filled = getattr(corpus, "clip_filled_mask", None)
+            if getattr(corpus, "clip_embedded", False):
+                index.encoder = {"source": "cross_modal",
+                                 **self.encoder_provenance()}
+            elif filled is not None and bool(filled.any()):
+                # Some rows external, some CLIP-filled — same "mixed"
+                # provenance the object path records (build_index below).
+                index.encoder = {"source": "mixed", **self.encoder_provenance()}
+            else:
+                index.encoder = {"source": "external"}
+            index.add_batch(list(corpus.ids),
+                            np.asarray(corpus.embeddings, np.float32),
+                            corpus.payload_matrix())
+            index.build()
+            return index
 
     # -- index handoff ------------------------------------------------------------
 

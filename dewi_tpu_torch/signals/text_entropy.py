@@ -22,6 +22,11 @@ of ``chip_len``.  The ring path gathers only the ``[1, T]`` NLL, never the
 ``[1, T, V]`` logits.  Under a ``ring_mesh`` the estimator is collective:
 every rank of the mesh calls it with the same texts and gets the same
 results.
+
+While a ``torch.profiler`` session records, the estimator names its stages
+(``dewi.text_entropy.long``, ``.buckets``, ``.fetch``) and counts the
+forwards, the token slots they carry, the real tokens among them and the
+long documents' windows (``text.*``; ``utils.profiling.trace_stats``).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, broadcast, check_mesh, mesh_d
 from ..parallel.ring import ring_token_nll
 from ..parallel.signals import DataParallel
 from ..utils.device import DeviceLike
+from ..utils.profiling import count, span, tracing
 from .tokenizer import bucket_length, get_tokenizer
 
 
@@ -158,6 +164,10 @@ class TextEntropyEstimator:
     def _score(self, ids: np.ndarray, mask: np.ndarray, use_domain: bool) -> tuple:
         """``(nll, valid, mean, qs)`` of one padded batch, on the device
         (under a mesh: this rank's rows forward, the NLL gathered back)."""
+        if tracing():
+            count("text.forwards")
+            count("text.token_slots", ids.size)
+            count("text.tokens", int(mask.sum()))
         ids_t, mask_t = self._dp.put(ids).long(), self._dp.put(mask)
         pad_id = int(self.tokenizer.pad_id)
         if pad_id >= self.cfg.vocab_size:
@@ -228,22 +238,26 @@ class TextEntropyEstimator:
         buckets, long_idx = self._buckets(texts)
         results: List[Optional[TextEntropyResult]] = [None] * len(texts)
         for i in long_idx:
-            results[i] = self._compute_long(texts[i], relative_to_domain, bs)
-        for blen, idxs in sorted(buckets.items()):
-            for start in range(0, len(idxs), bs):
-                chunk = idxs[start:start + bs]
-                nll, valid, mean, qs = self._score(
-                    *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
-                nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
-                mean, qs = mean.cpu().numpy(), qs.cpu().numpy()
-                for row, doc_i in enumerate(chunk):
-                    q = {self.quantiles[j]: float(qs[row, j]) for j in range(len(self.quantiles))}
-                    results[doc_i] = TextEntropyResult(
-                        token_entropies=nll[row][valid[row]].tolist(),
-                        mean_entropy=float(mean[row]),
-                        q90_entropy=float(q.get(0.9, qs[row, 0])),
-                        q99_entropy=float(q.get(0.99, qs[row, -1])),
-                    )
+            with span("dewi.text_entropy.long"):
+                results[i] = self._compute_long(texts[i], relative_to_domain, bs)
+        with span("dewi.text_entropy.buckets"):
+            for blen, idxs in sorted(buckets.items()):
+                for start in range(0, len(idxs), bs):
+                    chunk = idxs[start:start + bs]
+                    nll, valid, mean, qs = self._score(
+                        *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                    with span("dewi.text_entropy.fetch"):
+                        nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
+                        mean, qs = mean.cpu().numpy(), qs.cpu().numpy()
+                    for row, doc_i in enumerate(chunk):
+                        q = {self.quantiles[j]: float(qs[row, j])
+                             for j in range(len(self.quantiles))}
+                        results[doc_i] = TextEntropyResult(
+                            token_entropies=nll[row][valid[row]].tolist(),
+                            mean_entropy=float(mean[row]),
+                            q90_entropy=float(q.get(0.9, qs[row, 0])),
+                            q99_entropy=float(q.get(0.99, qs[row, -1])),
+                        )
         return results  # type: ignore[return-value]
 
     def _compute_long_ring(self, ids_full: List[int], relative_to_domain: bool) -> TextEntropyResult:
@@ -262,7 +276,9 @@ class TextEntropyEstimator:
         nll, valid = ring_token_nll(self.model, ids, pad, self.ring_mesh)
         if relative_to_domain and self.domain_model is not None:
             nll = nll - ring_token_nll(self.domain_model, ids, pad, self.ring_mesh)[0]
-        return _result_from_stream(nll[valid].cpu().numpy())
+        with span("dewi.text_entropy.fetch"):
+            stream = nll[valid].cpu().numpy()
+        return _result_from_stream(stream)
 
     def _compute_long(self, text: str, relative_to_domain: bool, bs: int) -> TextEntropyResult:
         """Long-document path.  With a ring mesh, a document within the
@@ -283,6 +299,7 @@ class TextEntropyEstimator:
         windows = [ids_full[s:s + t]
                    for s in range(0, max(len(ids_full) - overlap, 1), stride)]
         nw = len(windows)
+        count("text.windows", nw)
         ids = np.full((nw, t), self.tokenizer.pad_id, dtype=np.int32)
         mask = np.zeros((nw, t), dtype=np.float32)
         for w, win in enumerate(windows):
@@ -297,7 +314,8 @@ class TextEntropyEstimator:
             chunk_ids[:n] = ids[start:start + n]
             chunk_mask[:n] = mask[start:start + n]
             nll, valid, _, _ = self._score(chunk_ids, chunk_mask, use_domain)
-            nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
+            with span("dewi.text_entropy.fetch"):
+                nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
             for row in range(n):
                 stream = nll[row][valid[row]]
                 if start + row > 0:
@@ -322,7 +340,8 @@ class TextEntropyEstimator:
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         for i in long_idx:
-            r = self._compute_long(texts[i], relative_to_domain, bs)
+            with span("dewi.text_entropy.long"):
+                r = self._compute_long(texts[i], relative_to_domain, bs)
             means[i], q90s[i], q99s[i] = r.mean_entropy, r.q90_entropy, r.q99_entropy
             if progress is not None:
                 progress(1)
@@ -330,22 +349,25 @@ class TextEntropyEstimator:
         rows: List[int] = []
         dev_means: List[torch.Tensor] = []
         dev_qs: List[torch.Tensor] = []
-        for blen, idxs in sorted(buckets.items()):
-            for start in range(0, len(idxs), bs):
-                chunk = idxs[start:start + bs]
-                _, _, mean, qs = self._score(
-                    *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
-                rows.extend(chunk)
-                dev_means.append(mean[:len(chunk)])
-                dev_qs.append(qs[:len(chunk)])
-                if progress is not None:
-                    progress(len(chunk))
-        if rows:
-            idx = np.asarray(rows)
-            means[idx] = torch.cat(dev_means).cpu().numpy()
-            qs_h = torch.cat(dev_qs).cpu().numpy()
-            q90s[idx] = qs_h[:, q90_col]
-            q99s[idx] = qs_h[:, -1]
+        with span("dewi.text_entropy.buckets"):
+            for blen, idxs in sorted(buckets.items()):
+                for start in range(0, len(idxs), bs):
+                    chunk = idxs[start:start + bs]
+                    _, _, mean, qs = self._score(
+                        *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                    rows.extend(chunk)
+                    dev_means.append(mean[:len(chunk)])
+                    dev_qs.append(qs[:len(chunk)])
+                    if progress is not None:
+                        progress(len(chunk))
+            if rows:
+                idx = np.asarray(rows)
+                with span("dewi.text_entropy.fetch"):
+                    mean_h = torch.cat(dev_means).cpu().numpy()
+                    qs_h = torch.cat(dev_qs).cpu().numpy()
+                means[idx] = mean_h
+                q90s[idx] = qs_h[:, q90_col]
+                q99s[idx] = qs_h[:, -1]
         return means, q90s, q99s
 
     def __call__(self, text: str, **kwargs: Any) -> TextEntropyResult:

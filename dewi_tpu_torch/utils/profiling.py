@@ -8,7 +8,11 @@ Counterpart of ``dewi_tpu/utils/profiling.py``:
 * :func:`torch_trace`: ``torch.profiler`` over a block, written as a Chrome
   trace (the counterpart of ``xla_trace``);
 * :func:`summarize` and :func:`write_metrics`: the ``metrics.json`` shape
-  of the reference (docs/s, QPS, latency percentiles).
+  of the reference (docs/s, QPS, latency percentiles);
+* :func:`span` and :func:`count`: the program's own stage spans and
+  counters, recorded only while a ``torch.profiler`` session records in
+  the calling thread (the benchmark's ``--trace 1`` stretch, or
+  ``runtime.profile``); :func:`trace_stats` reads them.
 
 Helpers of the ``scripts/torch_*`` profilers: :func:`device_name` and
 :func:`card_line` (what a result names its device by), :func:`chained_ms`
@@ -23,6 +27,7 @@ import contextlib
 import functools
 import json
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -96,6 +101,123 @@ class Timer:
                 "total_ms": round(float(np.sum(vals)), 2),
             }
         return out
+
+
+# Whether a torch.profiler session records in this thread: the gate of
+# ``span`` and ``count``, about a tenth of a microsecond.
+tracing: Callable[[], bool] = torch._C._autograd._profiler_enabled
+
+
+class _Registry:
+    """Per span name: count, total and self host seconds, and the seconds
+    spent under each enclosing span; per counter name: a sum.  Each thread
+    keeps its own stack of open spans."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.spans: Dict[str, Dict[str, Any]] = {}
+        self.counters: Dict[str, int] = {}
+
+    def stack(self) -> List["_Span"]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add_span(self, name: str, parent: Optional[str], total: float, own: float) -> None:
+        with self.lock:
+            rec = self.spans.get(name)
+            if rec is None:
+                rec = self.spans[name] = {"count": 0, "total_s": 0.0, "self_s": 0.0,
+                                          "parents": {}}
+            rec["count"] += 1
+            rec["total_s"] += total
+            rec["self_s"] += own
+            rec["parents"][parent] = rec["parents"].get(parent, 0.0) + total
+
+    def add_count(self, name: str, n: int) -> None:
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+
+_REGISTRY = _Registry()
+
+
+class _Span:
+    """An open span: a ``record_function`` range in the trace, and its
+    host seconds, less those of its child spans, into the registry."""
+
+    __slots__ = ("name", "parent", "child_s", "start", "range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        stack = _REGISTRY.stack()
+        self.parent = stack[-1] if stack else None
+        self.child_s = 0.0
+        stack.append(self)
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = time.perf_counter()
+
+    def __exit__(self, *exc: Any) -> None:
+        total = time.perf_counter() - self.start
+        self.range.__exit__(*exc)
+        _REGISTRY.stack().pop()
+        parent = self.parent
+        if parent is not None:
+            parent.child_s += total
+        _REGISTRY.add_span(self.name, parent.name if parent is not None else None,
+                           total, total - self.child_s)
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc: Any) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: str) -> Any:
+    """``with span(name):`` a stage of the program.  While ``tracing()``,
+    a ``record_function`` range of that name in the profiler's trace (on
+    the clock of the device's operations) and host seconds in the
+    registry; else nothing.  Never synchronises the device."""
+    if not tracing():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while ``tracing()``."""
+    if tracing():
+        _REGISTRY.add_count(name, n)
+
+
+def trace_stats() -> Dict[str, Any]:
+    """A snapshot of the registry: ``{"spans": {name: {"count", "total_s",
+    "self_s", "parents": {enclosing span name or None: total_s under
+    it}}}, "counters": {name: sum}}``.  ``self_s`` is ``total_s`` less
+    the time the span's children cover."""
+    with _REGISTRY.lock:
+        spans = {k: dict(v, parents=dict(v["parents"])) for k, v in _REGISTRY.spans.items()}
+        return {"spans": spans, "counters": dict(_REGISTRY.counters)}
+
+
+def reset_trace_stats() -> None:
+    """Empty the registry (the open spans of every thread still close
+    into it)."""
+    with _REGISTRY.lock:
+        _REGISTRY.spans.clear()
+        _REGISTRY.counters.clear()
 
 
 @contextlib.contextmanager
@@ -287,4 +409,5 @@ def launched_kernels(fn: Callable[[], Any], device: torch.device) -> Dict[str, A
 
 
 __all__ = ["Timer", "torch_trace", "summarize", "write_metrics", "device_name",
-           "card_line", "chained_ms", "launched_kernels"]
+           "card_line", "chained_ms", "launched_kernels", "tracing", "span", "count",
+           "trace_stats", "reset_trace_stats"]

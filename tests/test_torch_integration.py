@@ -171,6 +171,9 @@ def test_sampling_over_scores(flows, monkeypatch):
     u = t_sampling.uniform_noise(len(docs), 0, CPU).numpy()
     monkeypatch.setattr(j_sampling.jax.random, "uniform",
                         lambda key, shape, minval, maxval: j_sampling.jnp.asarray(u))
+    # Unjitted, so the injected uniforms take effect even where an earlier
+    # test in this process compiled the sampler at this shape.
+    monkeypatch.setattr(j_sampling, "_gumbel_topk", j_sampling._gumbel_topk.__wrapped__)
     assert res["picks"] == np.asarray(j_sampling.sample_by_dewi(dewi, k=4, tau=2.0,
                                                                 seed=0)).tolist()
     assert res["cover"] == np.asarray(j_sampling.submodular_pick(emb, k=3)).tolist()
