@@ -18,15 +18,16 @@ Documents longer than ``chip_len`` (default: the model's ``max_len``) take
 the long-document path.  Under a ``ring_mesh`` one that fits the model's
 positions is scored whole in one ring-attention forward over the mesh's
 model axis (``parallel.ring``); the rest are scored over overlapping windows
-of ``chip_len``.  The ring path gathers only the ``[1, T]`` NLL, never the
-``[1, T, V]`` logits.  Under a ``ring_mesh`` the estimator is collective:
-every rank of the mesh calls it with the same texts and gets the same
-results.
+of ``chip_len``, packed across documents into full batches.  The ring path
+gathers only the ``[1, T]`` NLL, never the ``[1, T, V]`` logits.  Under a
+``ring_mesh`` the estimator is collective: every rank of the mesh calls it
+with the same texts and gets the same results.
 
 While a ``torch.profiler`` session records, the estimator names its stages
 (``dewi.text_entropy.long``, ``.buckets``, ``.fetch``) and counts the
-forwards, the token slots they carry, the real tokens among them and the
-long documents' windows (``text.*``; ``utils.profiling.trace_stats``).
+forwards, the token slots they carry, the real tokens among them, the long
+documents' windows and the forwards that carry them (``text.*``;
+``utils.profiling.trace_stats``).
 """
 
 from __future__ import annotations
@@ -162,8 +163,8 @@ class TextEntropyEstimator:
 
     @torch.no_grad()
     def _score(self, ids: np.ndarray, mask: np.ndarray, use_domain: bool) -> tuple:
-        """``(nll, valid, mean, qs)`` of one padded batch, on the device
-        (under a mesh: this rank's rows forward, the NLL gathered back)."""
+        """``(nll, valid)`` of one padded batch, on the device (under a
+        mesh: this rank's rows forward, the NLL gathered back)."""
         if tracing():
             count("text.forwards")
             count("text.token_slots", ids.size)
@@ -179,9 +180,7 @@ class TextEntropyEstimator:
         if use_domain:
             dnll, _ = token_nll(self.domain_model(ids_t, mask_t), ids_t, mask_t)
             nll = nll - dnll
-        nll, valid = self._dp.gather(nll), self._dp.gather(valid)
-        mean, qs = masked_mean_and_quantiles(nll, valid, self._qs)
-        return nll, valid, mean, qs
+        return self._dp.gather(nll), self._dp.gather(valid)
 
     def _encode_padded(self, texts: Sequence[str], blen: int, bs: int) -> tuple:
         """``[bs, blen]`` ids and mask; rows past ``len(texts)`` are padding
@@ -237,15 +236,17 @@ class TextEntropyEstimator:
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         results: List[Optional[TextEntropyResult]] = [None] * len(texts)
-        for i in long_idx:
+        if long_idx:
             with span("dewi.text_entropy.long"):
-                results[i] = self._compute_long(texts[i], relative_to_domain, bs)
+                for i, r in self._compute_long(texts, long_idx, relative_to_domain, bs):
+                    results[i] = r
         with span("dewi.text_entropy.buckets"):
             for blen, idxs in sorted(buckets.items()):
                 for start in range(0, len(idxs), bs):
                     chunk = idxs[start:start + bs]
-                    nll, valid, mean, qs = self._score(
+                    nll, valid = self._score(
                         *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                    mean, qs = masked_mean_and_quantiles(nll, valid, self._qs)
                     with span("dewi.text_entropy.fetch"):
                         nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
                         mean, qs = mean.cpu().numpy(), qs.cpu().numpy()
@@ -280,48 +281,64 @@ class TextEntropyEstimator:
             stream = nll[valid].cpu().numpy()
         return _result_from_stream(stream)
 
-    def _compute_long(self, text: str, relative_to_domain: bool, bs: int) -> TextEntropyResult:
-        """Long-document path.  With a ring mesh, a document within the
-        model's ``max_len`` is scored whole over the ring.  Otherwise:
-        overlapping fixed windows, merged token stream.
+    def _compute_long(self, texts: Sequence[str], idx: Sequence[int],
+                      relative_to_domain: bool, bs: int) -> List[tuple]:
+        """``(i, result)`` for each long document ``texts[i]``, ``i`` in
+        ``idx``.  With a ring mesh, a document within the model's
+        ``max_len`` is scored whole over the ring.  Otherwise: overlapping
+        fixed windows, merged token stream.
 
         Windows of ``chip_len`` tokens advance by ``chip_len - overlap``
-        (``overlap = chip_len // 4``); after the first window, each window's
-        first ``overlap - 1`` targets are context only and dropped, so every
-        kept token has at least ``overlap - 1`` tokens of left context.
+        (``overlap = chip_len // 4``); after a document's first window, each
+        window's first ``overlap - 1`` targets are context only and dropped,
+        so every kept token has at least ``overlap - 1`` tokens of left
+        context.  The windows of all the documents are stacked in document
+        order and forwarded ``bs`` rows at a time, so only the last forward
+        carries padding rows.  Rows of a causal LM are independent and each
+        forward has the shape a document alone takes, so a window's NLL is
+        the one that forward gives, to float32 rounding.  The NLL stays on
+        the device until one copy after the last forward.
         """
-        ids_full = self.tokenizer.encode(text, 1 << 30)
-        if self.ring_mesh is not None and len(ids_full) <= self.cfg.max_len:
-            return self._compute_long_ring(ids_full, relative_to_domain)
         t = self.chip_len
         overlap = t // 4
         stride = t - overlap
-        windows = [ids_full[s:s + t]
-                   for s in range(0, max(len(ids_full) - overlap, 1), stride)]
-        nw = len(windows)
-        count("text.windows", nw)
-        ids = np.full((nw, t), self.tokenizer.pad_id, dtype=np.int32)
-        mask = np.zeros((nw, t), dtype=np.float32)
+        out: List[tuple] = []
+        windows: List[List[int]] = []
+        owners: List[int] = []
+        for i in idx:
+            ids_full = self.tokenizer.encode(texts[i], 1 << 30)
+            if self.ring_mesh is not None and len(ids_full) <= self.cfg.max_len:
+                out.append((i, self._compute_long_ring(ids_full, relative_to_domain)))
+                continue
+            starts = range(0, max(len(ids_full) - overlap, 1), stride)
+            windows.extend(ids_full[s:s + t] for s in starts)
+            owners.extend([i] * len(starts))
+        if not windows:
+            return out
+        count("text.windows", len(windows))
+        rows = -(-len(windows) // bs) * bs
+        ids = np.full((rows, t), self.tokenizer.pad_id, dtype=np.int32)
+        mask = np.zeros((rows, t), dtype=np.float32)
         for w, win in enumerate(windows):
             ids[w, :len(win)] = win
             mask[w, :len(win)] = 1.0
         use_domain = relative_to_domain and self.domain_model is not None
-        toks: List[np.ndarray] = []
-        for start in range(0, nw, bs):
-            n = min(bs, nw - start)
-            chunk_ids = np.full((bs, t), self.tokenizer.pad_id, dtype=np.int32)
-            chunk_mask = np.zeros((bs, t), np.float32)
-            chunk_ids[:n] = ids[start:start + n]
-            chunk_mask[:n] = mask[start:start + n]
-            nll, valid, _, _ = self._score(chunk_ids, chunk_mask, use_domain)
-            with span("dewi.text_entropy.fetch"):
-                nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
-            for row in range(n):
-                stream = nll[row][valid[row]]
-                if start + row > 0:
-                    stream = stream[overlap - 1:]  # drop context-only targets
-                toks.append(stream)
-        return _result_from_stream(np.concatenate(toks).astype(np.float32))
+        scored = []
+        for start in range(0, rows, bs):
+            count("text.window_forwards")
+            scored.append(self._score(ids[start:start + bs], mask[start:start + bs], use_domain))
+        with span("dewi.text_entropy.fetch"):
+            nll = torch.cat([s[0] for s in scored]).cpu().numpy()
+            valid = torch.cat([s[1] for s in scored]).cpu().numpy()
+        toks: Dict[int, List[np.ndarray]] = {}
+        for w, i in enumerate(owners):
+            stream = nll[w][valid[w]]
+            if i in toks:
+                stream = stream[overlap - 1:]  # drop context-only targets
+            toks.setdefault(i, []).append(stream)
+        out.extend((i, _result_from_stream(np.concatenate(s).astype(np.float32)))
+                   for i, s in toks.items())
+        return out
 
     def batch_compute_stats(
         self,
@@ -339,12 +356,12 @@ class TextEntropyEstimator:
         bs = self._dp.round_batch(batch_size or self.batch_size)
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
-        for i in long_idx:
+        if long_idx:
             with span("dewi.text_entropy.long"):
-                r = self._compute_long(texts[i], relative_to_domain, bs)
-            means[i], q90s[i], q99s[i] = r.mean_entropy, r.q90_entropy, r.q99_entropy
-            if progress is not None:
-                progress(1)
+                for i, r in self._compute_long(texts, long_idx, relative_to_domain, bs):
+                    means[i], q90s[i], q99s[i] = r.mean_entropy, r.q90_entropy, r.q99_entropy
+                    if progress is not None:
+                        progress(1)
         q90_col = self.quantiles.index(0.9) if 0.9 in self.quantiles else 0
         rows: List[int] = []
         dev_means: List[torch.Tensor] = []
@@ -353,8 +370,9 @@ class TextEntropyEstimator:
             for blen, idxs in sorted(buckets.items()):
                 for start in range(0, len(idxs), bs):
                     chunk = idxs[start:start + bs]
-                    _, _, mean, qs = self._score(
-                        *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain)
+                    mean, qs = masked_mean_and_quantiles(*self._score(
+                        *self._encode_padded([texts[i] for i in chunk], blen, bs), use_domain),
+                        self._qs)
                     rows.extend(chunk)
                     dev_means.append(mean[:len(chunk)])
                     dev_qs.append(qs[:len(chunk)])

@@ -50,6 +50,11 @@ MAX_LEN = 64  # the text LM's context: longer documents are windowed
 # Byte lengths across the 32 and 64 buckets, at their edges, and past the
 # context (windows).
 TEXT_LENGTHS = (0, 3, 20, 30, 31, 32, 40, 62, 63, 64, 100, 250)
+# Long documents of 2, 3, 5 and 7 windows of 64 tokens (48 apart) between
+# short ones: with batches of 4 their 17 windows take five forwards, and
+# windows of one document straddle batches and share them with others'.
+PACKED_LENGTHS = (20, 90, 40, 330, 140, 3, 230, 62)
+PACKED_WINDOWS = (2, 7, 3, 5)
 
 
 def rel_dev(got, want):
@@ -61,11 +66,11 @@ def rel_dev(got, want):
     return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
 
 
-def _texts(seed=0):
+def _texts(seed=0, lengths=TEXT_LENGTHS):
     rng = np.random.default_rng(seed)
     words = ["tpu", "cuda", "entropy", "image", "token", "zebra", "quartz", "ü", "日本"]
     out = []
-    for n in TEXT_LENGTHS:
+    for n in lengths:
         s = ""
         while len(s.encode()) < n:
             s += rng.choice(words) + " "
@@ -180,6 +185,35 @@ def test_text_long_document_windows(text_pair):
     assert len(got.token_entropies) == len(want.token_entropies) == kept
     tol = F32_RTOL if dtype == "float32" else BF16_RTOL
     assert rel_dev(got.token_entropies, want.token_entropies) <= tol
+
+
+@pytest.mark.parametrize("relative", [False, True])
+def test_text_long_windows_pack_across_documents(text_pair, relative):
+    """Long documents whose windows share forwards with each other's match
+    the reference per document, and the port's own one-document calls."""
+    dtype, ref, port = text_pair
+    texts = _texts(2, PACKED_LENGTHS)
+    overlap, stride = MAX_LEN // 4, MAX_LEN - MAX_LEN // 4
+    n_tok = [1 + len(t.encode()) for t in texts]
+    assert [-(-(n - overlap) // stride) for n in n_tok if n > MAX_LEN] == list(PACKED_WINDOWS)
+    kw = dict(relative_to_domain=relative)
+    got, want = port.batch_compute(texts, **kw), ref.batch_compute(texts, **kw)
+    got_s, want_s = port.batch_compute_stats(texts, **kw), ref.batch_compute_stats(texts, **kw)
+    f32 = dtype == "float32" and not relative
+    tok_tol = F32_RTOL if f32 else BF16_RTOL
+    doc_tol = F32_RTOL if f32 else (BF16_RTOL if relative else BF16_DOC_RTOL)
+    for d, (text, g, w) in enumerate(zip(texts, got, want)):
+        assert len(g.token_entropies) == len(w.token_entropies), d
+        assert rel_dev(g.token_entropies, w.token_entropies) <= tok_tol, d
+        g_doc, w_doc = [g.mean_entropy, g.q90_entropy], [w.mean_entropy, w.q90_entropy]
+        assert rel_dev(g_doc, w_doc) <= doc_tol, d
+        assert rel_dev([x[d] for x in got_s[:2]], [x[d] for x in want_s[:2]]) <= doc_tol, d
+        one = port.batch_compute([text], **kw)[0]
+        one_s = port.batch_compute_stats([text], **kw)
+        assert one.token_entropies == pytest.approx(g.token_entropies, rel=1e-6), d
+        assert [one.mean_entropy, one.q90_entropy, one.q99_entropy] == pytest.approx(
+            [g.mean_entropy, g.q90_entropy, g.q99_entropy], rel=1e-6), d
+        assert [x[0] for x in one_s] == pytest.approx([x[d] for x in got_s], rel=1e-6), d
 
 
 def test_text_empty_and_vocab_check(tmp_path):

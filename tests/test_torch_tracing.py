@@ -5,7 +5,8 @@
 * Under a CPU ``torch.profiler`` session the corpus and search stages show
   among the profiler's events, nested as the program nests them, and the
   registry's self time is the total less the children's.
-* The LM's counters equal hand counts on texts of known token counts.
+* The LM's counters equal hand counts on texts of known token counts,
+  where the long documents' windows pack across documents too.
 * The program's results are bit-identical with the profiler on and off.
 * ``process`` with ``runtime.profile`` writes ``profile/spans.json``.
 
@@ -60,14 +61,25 @@ DIRECT_PARENTS = {
 # Token counts (byte tokenizer: one BOS, then one token a byte) with
 # chip_len 32 and batches of 4: five short documents in one 32-token
 # bucket, two forwards of [4, 32]; an 80-token document in three windows
-# (starts 0, 24, 48; 32 tokens each), one forward; a 41-token document in
-# two windows (32 and 17 tokens), one forward.
+# (starts 0, 24, 48; 32 tokens each) and a 41-token document in two windows
+# (32 and 17 tokens): five windows, two forwards of [4, 32] whether each
+# document has its own or the windows are packed across documents.
 SHORT = ["a" * 4, "b" * 8, "c" * 16, "d" * 29, "e" * 9]
 LONG = ["f" * 79, "g" * 40]
 HAND = {"text.forwards": 2 + 1 + 1,
         "text.token_slots": 2 * 4 * 32 + 4 * 32 + 4 * 32,
         "text.tokens": (5 + 9 + 17 + 30 + 10) + 3 * 32 + (32 + 17),
-        "text.windows": 3 + 2}
+        "text.windows": 3 + 2,
+        "text.window_forwards": 2}
+# Three documents of 41, 46 and 51 tokens, two windows each (32 tokens,
+# then 17, 22 and 27): six windows pack into two forwards of [4, 32], where
+# one forward a document would take three.
+PACKED = ["h" * 40, "i" * 45, "j" * 50]
+PACKED_HAND = {"text.forwards": 2,
+               "text.token_slots": 2 * 4 * 32,
+               "text.tokens": 3 * 32 + 17 + 22 + 27,
+               "text.windows": 6,
+               "text.window_forwards": 2}
 
 
 @pytest.fixture(autouse=True)
@@ -217,6 +229,17 @@ def test_counters_equal_hand_counts(path):
         [5, 9, 17, 30, 10, 80, 41]
     _traced(lambda: getattr(est, path)(texts))
     assert prof.trace_stats()["counters"] == HAND
+
+
+@pytest.mark.parametrize("path", ["batch_compute_stats", "batch_compute"])
+def test_counters_pack_windows_across_documents(path):
+    est = TextEntropyEstimator("tiny", device="cpu", batch_size=4, max_length=64, chip_len=32)
+    assert [len(est.tokenizer.encode(t, 1 << 30)) for t in PACKED] == [41, 46, 51]
+    _traced(lambda: getattr(est, path)(PACKED))
+    stats = prof.trace_stats()
+    assert stats["counters"] == PACKED_HAND
+    assert stats["spans"]["dewi.text_entropy.long"]["count"] == 1
+    assert stats["spans"]["dewi.text_entropy.fetch"]["count"] == 1
 
 
 def test_results_identical_with_the_profiler_on_and_off(pipe, index):
