@@ -9,6 +9,10 @@ scales).  The random stream is PyTorch's, so a seeded model here is not the
 reference's model for the same seed; weights cross between the packages
 only through checkpoints or :mod:`dewi_tpu_torch.convert`.
 
+The text-entropy LM may also be a Moonlight preset (``MOONLIGHT_PRESETS``,
+``models/moonlight.py``): ``init_moonlight`` builds it on its device in its
+own dtype, with no draw on the CPU; it has no checkpoint layout.
+
 Checkpoints are the reference's msgpack files (``flax.serialization``
 layout), read and written by :mod:`dewi_tpu_torch.utils.msgpack`.  The
 reference's orbax checkpoint directories are read too, through
@@ -32,6 +36,7 @@ from .clip import CLIPConfig, CLIPDualEncoder
 from .lm import CausalLM
 from .mae import MAEConfig, ViTMAE
 from .moe import MoECausalLM
+from .moonlight import MOONLIGHT_PRESETS, init_moonlight, moonlight_config
 from .transformer import TransformerConfig
 
 PathLike = Union[str, Path]
@@ -311,9 +316,9 @@ def checkpoint_fingerprint(path: Optional[PathLike]) -> Optional[str]:
 
 
 __all__ = [
-    "LM_PRESETS", "MAE_PRESETS", "CLIP_PRESETS",
-    "lm_config", "mae_config", "clip_config",
-    "init_lm", "init_mae", "init_clip", "init_moe_lm",
+    "LM_PRESETS", "MAE_PRESETS", "CLIP_PRESETS", "MOONLIGHT_PRESETS",
+    "lm_config", "mae_config", "clip_config", "moonlight_config",
+    "init_lm", "init_mae", "init_clip", "init_moe_lm", "init_moonlight",
     "save_params", "load_params", "maybe_load", "refuse_orbax_write", "refuse_sharded_write",
     "param_count", "checkpoint_fingerprint",
 ]

@@ -23,11 +23,19 @@ gathers only the ``[1, T]`` NLL, never the ``[1, T, V]`` logits.  Under a
 ``ring_mesh`` the estimator is collective: every rank of the mesh calls it
 with the same texts and gets the same results.
 
+``model_name`` is a GPT-2-style preset (``models.registry.LM_PRESETS``,
+the vocabulary the tokenizer's) or a Moonlight preset
+(``models.moonlight.MOONLIGHT_PRESETS``: its own vocabulary, which must hold
+the tokenizer's ids; built on the device in its own dtype; the model
+returns the NLL itself, from a head computed in token chunks).
+
 While a ``torch.profiler`` session records, the estimator names its stages
 (``dewi.text_entropy.long``, ``.buckets``, ``.fetch``) and counts the
-forwards, the token slots they carry, the real tokens among them, the long
-documents' windows and the forwards that carry them (``text.*``;
-``utils.profiling.trace_stats``).
+forwards, the token slots they carry, the real tokens among them, the
+causal (query, key) pairs of the real tokens, the long documents' windows
+and the forwards that carry them (``text.*``;
+``utils.profiling.trace_stats``); at each ``.fetch`` it adds the counts a
+model summed on the device.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 
 from ..models.import_hf import sidecar_config
 from ..models.lm import token_nll
+from ..models.moonlight import MOONLIGHT_PRESETS, init_moonlight, moonlight_config
 from ..models.registry import init_lm, lm_config, maybe_load
 from ..models.transformer import TransformerConfig
 from ..ops.robust import masked_mean_and_quantiles
@@ -116,7 +125,17 @@ class TextEntropyEstimator:
         self.batch_size = self._dp.round_batch(batch_size)
         self.tokenizer = get_tokenizer(tokenizer)
         side = sidecar_config(checkpoint)
-        if side is not None:
+        moonlight = model_name in MOONLIGHT_PRESETS
+        if moonlight:
+            if checkpoint or domain_model_name or domain_checkpoint or ring_mesh is not None:
+                raise ValueError(f"text model {model_name!r} is built from its seed alone: "
+                                 "no checkpoint, domain model or ring mesh")
+            cfg = moonlight_config(model_name, max_len=int(max_length))
+            if self.tokenizer.vocab_size > cfg.vocab_size:
+                raise ValueError(
+                    f"tokenizer {tokenizer!r} has {self.tokenizer.vocab_size} ids; "
+                    f"{model_name!r} embeds {cfg.vocab_size}")
+        elif side is not None:
             cfg = TransformerConfig(**side["config"])
             if cfg.vocab_size != self.tokenizer.vocab_size:
                 # A forward over the wrong tokenizer returns meaningless
@@ -135,7 +154,10 @@ class TextEntropyEstimator:
                                 max_len=int(max_length))
         self.cfg = cfg
         self.chip_len = min(int(chip_len or cfg.max_len), cfg.max_len)
-        self.model = maybe_load(init_lm(cfg, seed=seed, device=self.device), checkpoint)
+        if moonlight:
+            self.model = init_moonlight(cfg, seed=seed, device=self.device)
+        else:
+            self.model = maybe_load(init_lm(cfg, seed=seed, device=self.device), checkpoint)
         self.domain_model = None
         if domain_model_name or domain_checkpoint:
             self.domain_cfg = lm_config(domain_model_name or model_name,
@@ -166,9 +188,11 @@ class TextEntropyEstimator:
         """``(nll, valid)`` of one padded batch, on the device (under a
         mesh: this rank's rows forward, the NLL gathered back)."""
         if tracing():
+            lens = mask.sum(1).astype(np.int64)
             count("text.forwards")
             count("text.token_slots", ids.size)
-            count("text.tokens", int(mask.sum()))
+            count("text.tokens", int(lens.sum()))
+            count("text.attention_pairs", int((lens * (lens + 1) // 2).sum()))
         ids_t, mask_t = self._dp.put(ids).long(), self._dp.put(mask)
         pad_id = int(self.tokenizer.pad_id)
         if pad_id >= self.cfg.vocab_size:
@@ -176,11 +200,21 @@ class TextEntropyEstimator:
             # in the reference: zero it before the embedding gather.  Pad
             # positions are attention- and loss-masked, so outputs are the same.
             ids_t = torch.where(ids_t != pad_id, ids_t, 0)
-        nll, valid = token_nll(self.model(ids_t, mask_t), ids_t, mask_t)
+        if getattr(self.model, "returns_nll", False):
+            nll, valid = self.model.token_nll(ids_t, mask_t)
+        else:
+            nll, valid = token_nll(self.model(ids_t, mask_t), ids_t, mask_t)
         if use_domain:
             dnll, _ = token_nll(self.domain_model(ids_t, mask_t), ids_t, mask_t)
             nll = nll - dnll
         return self._dp.gather(nll), self._dp.gather(valid)
+
+    def _flush_counts(self) -> None:
+        """Count what the model summed on the device while tracing (the
+        MoE's routed rows), where the results are copied to the host."""
+        flush = getattr(self.model, "flush_counts", None)
+        if flush is not None and tracing():
+            flush()
 
     def _encode_padded(self, texts: Sequence[str], blen: int, bs: int) -> tuple:
         """``[bs, blen]`` ids and mask; rows past ``len(texts)`` are padding
@@ -250,6 +284,7 @@ class TextEntropyEstimator:
                     with span("dewi.text_entropy.fetch"):
                         nll, valid = nll.cpu().numpy(), valid.cpu().numpy()
                         mean, qs = mean.cpu().numpy(), qs.cpu().numpy()
+                        self._flush_counts()
                     for row, doc_i in enumerate(chunk):
                         q = {self.quantiles[j]: float(qs[row, j])
                              for j in range(len(self.quantiles))}
@@ -330,6 +365,7 @@ class TextEntropyEstimator:
         with span("dewi.text_entropy.fetch"):
             nll = torch.cat([s[0] for s in scored]).cpu().numpy()
             valid = torch.cat([s[1] for s in scored]).cpu().numpy()
+            self._flush_counts()
         toks: Dict[int, List[np.ndarray]] = {}
         for w, i in enumerate(owners):
             stream = nll[w][valid[w]]
@@ -383,6 +419,7 @@ class TextEntropyEstimator:
                 with span("dewi.text_entropy.fetch"):
                     mean_h = torch.cat(dev_means).cpu().numpy()
                     qs_h = torch.cat(dev_qs).cpu().numpy()
+                    self._flush_counts()
                 means[idx] = mean_h
                 q90s[idx] = qs_h[:, q90_col]
                 q99s[idx] = qs_h[:, -1]

@@ -64,11 +64,17 @@ DIRECT_PARENTS = {
 # (starts 0, 24, 48; 32 tokens each) and a 41-token document in two windows
 # (32 and 17 tokens): five windows, two forwards of [4, 32] whether each
 # document has its own or the windows are packed across documents.
+def _pairs(*lens):
+    """The causal (query, key) pairs of rows of these real lengths."""
+    return sum(n * (n + 1) // 2 for n in lens)
+
+
 SHORT = ["a" * 4, "b" * 8, "c" * 16, "d" * 29, "e" * 9]
 LONG = ["f" * 79, "g" * 40]
 HAND = {"text.forwards": 2 + 1 + 1,
         "text.token_slots": 2 * 4 * 32 + 4 * 32 + 4 * 32,
         "text.tokens": (5 + 9 + 17 + 30 + 10) + 3 * 32 + (32 + 17),
+        "text.attention_pairs": _pairs(5, 9, 17, 30, 10, 32, 32, 32, 32, 17),
         "text.windows": 3 + 2,
         "text.window_forwards": 2}
 # Three documents of 41, 46 and 51 tokens, two windows each (32 tokens,
@@ -78,6 +84,7 @@ PACKED = ["h" * 40, "i" * 45, "j" * 50]
 PACKED_HAND = {"text.forwards": 2,
                "text.token_slots": 2 * 4 * 32,
                "text.tokens": 3 * 32 + 17 + 22 + 27,
+               "text.attention_pairs": _pairs(32, 17, 32, 22, 32, 27),
                "text.windows": 6,
                "text.window_forwards": 2}
 
