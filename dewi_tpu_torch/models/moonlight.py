@@ -13,11 +13,16 @@ the port scores text with it through ``TextEntropyEstimator`` like GPT-2.
   W_kva x``, a 512-wide latent and one 64-dim rotated key that every head
   shares; ``[k_nope, v] = W_kvb rmsnorm(c_kv)`` per head.  RoPE pairs
   DeepSeek-V3's way: the 64 dims are de-interleaved, then rotated by halves.
-  Causal softmax over ``q.k / sqrt(192)``.  Rows are right-padded, so the
-  causal mask alone hides every pad key from every real query.
-  ``scaled_dot_product_attention`` takes equal q/k/v widths on its flash
-  backend, so ``v`` is padded from 128 to 192 with zeros and the padding
-  cut from the output: it never builds ``[B, H, T, T]``.
+  Causal softmax over ``q.k / sqrt(192)`` within each sequence.
+* **Flat sequences:** the forward takes one stream of ``N`` tokens, the
+  sequences' boundaries ``cu_seqlens`` and the longest's length; each
+  sequence restarts its positions at 0 and attends to itself alone
+  (``varlen_attn``, flash attention over the sequences, on a card; causal
+  SDPA one sequence at a time on the CPU), so a forward carries no
+  padding.  Flash attention takes equal q/k/v widths, so ``v`` is padded
+  from 128 to 192 with zeros and the padding cut from the output.  The
+  right-padded ``[B, T]`` entry point makes each row one sequence: its
+  padding trails its real tokens, which the causal mask hides it from.
 * **Mixture of experts:** ``s = sigmoid(W_g x)`` in float32, on the
   norm's float32 output (not its bfloat16 rounding, whose error alone
   would send a token near a routing tie to another expert); the top
@@ -32,7 +37,9 @@ the port scores text with it through ``TextEntropyEstimator`` like GPT-2.
   before the down projection.  Nothing in the forward waits for the device.
 * **Head:** the final RMSNorm, then ``lm_head`` over the vocabulary in
   chunks of ``logit_chunk`` token rows, each reduced to the next-token NLL
-  at once: full-vocabulary float32 logits are never held.
+  at once: full-vocabulary float32 logits are never held.  On a flat
+  stream it runs only over the tokens whose next token is in their own
+  sequence.
 
 Weights and matmuls are in ``cfg.dtype`` (bfloat16 as published); the
 router, the norms and the NLL are float32.  ``init_moonlight`` builds the
@@ -123,8 +130,9 @@ def rope_tables(t: int, dim: int, theta: float, device: torch.device) -> Tuple[t
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """DeepSeek-V3's rotary embedding of ``x [..., T, H, dim]`` in float32:
-    the dims de-interleaved (``x0, x2, .., x1, x3, ..``), then
+    """DeepSeek-V3's rotary embedding of ``x [..., T, H, dim]`` in float32,
+    ``cos``, ``sin`` ``[T, dim]`` the angles of each token's position: the
+    dims de-interleaved (``x0, x2, .., x1, x3, ..``), then
     ``x * cos + rotate_half(x) * sin``."""
     d = x.shape[-1]
     x = x.float().unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
@@ -134,6 +142,40 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _linear(n_in: int, n_out: int, dtype: torch.dtype) -> nn.Linear:
     return nn.Linear(n_in, n_out, bias=False, dtype=dtype)
+
+
+def causal_varlen(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cu: torch.Tensor,
+                  max_len: int, scale: float) -> torch.Tensor:
+    """Causal attention of ``q, k, v [N, H, d]`` within each sequence
+    ``cu [S+1]`` (int32) bounds, ``max_len`` the longest: on a card
+    ``varlen_attn`` (flash attention over the sequences, no padding); on
+    the CPU the plain version, causal SDPA one sequence at a time."""
+    if q.device.type == "cpu":
+        out = torch.empty_like(q)
+        for a, b in zip(cu[:-1].tolist(), cu[1:].tolist()):
+            out[a:b] = F.scaled_dot_product_attention(
+                q[a:b].transpose(0, 1), k[a:b].transpose(0, 1), v[a:b].transpose(0, 1),
+                is_causal=True, scale=scale).transpose(0, 1)
+        return out
+    from torch.nn.attention.varlen import varlen_attn
+
+    return varlen_attn(q, k, v, cu, cu, max_len, max_len, scale=scale, window_size=(-1, 0))
+
+
+def positions(cu: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n]`` int64: each token's position within its own sequence."""
+    i = torch.arange(n, device=cu.device, dtype=cu.dtype)
+    seq = torch.searchsorted(cu[1:], i, right=True)
+    return i.long() - cu.long()[seq]
+
+
+def scored_positions(cu: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n - S]`` int64: the tokens whose next token is in their own
+    sequence, in order (each sequence of ``L >= 1`` tokens gives ``L - 1``)."""
+    s = cu.numel() - 1
+    j = torch.arange(n - s, device=cu.device, dtype=torch.int64)
+    ends = cu[1:].long() - torch.arange(1, s + 1, device=cu.device)
+    return j + torch.searchsorted(ends, j, right=True)
 
 
 class MLA(nn.Module):
@@ -149,23 +191,24 @@ class MLA(nn.Module):
                                  c.dtype)
         self.o_proj = _linear(h * c.v_head_dim, c.hidden_size, c.dtype)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cu: torch.Tensor, max_len: int) -> torch.Tensor:
+        """``x [N, D]``, the tokens of the sequences ``cu`` bounds, each
+        attending causally to its own sequence alone."""
         c, dt = self.c, self.c.dtype
-        b, t, _ = x.shape
+        n = x.shape[0]
         h, nope, rope, dv = c.num_attention_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, \
             c.v_head_dim
-        q_nope, q_pe = self.q_proj(x).view(b, t, h, nope + rope).split([nope, rope], -1)
+        q_nope, q_pe = self.q_proj(x).view(n, h, nope + rope).split([nope, rope], -1)
         latent, k_pe = self.kv_a_proj_with_mqa(x).split([c.kv_lora_rank, rope], -1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(latent).to(dt)).view(b, t, h, nope + dv)
+        kv = self.kv_b_proj(self.kv_a_layernorm(latent).to(dt)).view(n, h, nope + dv)
         k_nope, v = kv.split([nope, dv], -1)
         q = torch.cat([q_nope, apply_rope(q_pe, cos, sin).to(dt)], -1)
-        k_pe = apply_rope(k_pe[:, :, None], cos, sin).to(dt).expand(b, t, h, rope)
+        k_pe = apply_rope(k_pe[:, None], cos, sin).to(dt).expand(n, h, rope)
         k = torch.cat([k_nope, k_pe], -1)
         v = F.pad(v, (0, nope + rope - dv))
-        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                           v.transpose(1, 2), is_causal=True,
-                                           scale=c.qk_head_dim ** -0.5)
-        return self.o_proj(o[..., :dv].transpose(1, 2).reshape(b, t, h * dv))
+        o = causal_varlen(q, k, v, cu, max_len, c.qk_head_dim ** -0.5)
+        return self.o_proj(o[..., :dv].reshape(n, h * dv))
 
 
 class SwiGLU(nn.Module):
@@ -269,20 +312,22 @@ class Block(nn.Module):
         self.dt = c.dtype
 
     def forward(self, x: torch.Tensor, routed: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, cu: torch.Tensor, max_len: int) -> torch.Tensor:
         with span("dewi.lm.attention"):
-            x = x + self.self_attn(self.input_layernorm(x).to(self.dt), cos, sin).float()
+            x = x + self.self_attn(self.input_layernorm(x).to(self.dt), cos, sin, cu,
+                                   max_len).float()
         h = self.post_attention_layernorm(x)
         if isinstance(self.mlp, MoE):
-            b, t, d = h.shape
-            return x + self.mlp(h.reshape(b * t, d), routed.reshape(-1)).view(b, t, d).float()
+            return x + self.mlp(h, routed).float()
         return x + self.mlp(h.to(self.dt)).float()
 
 
 class MoonlightLM(nn.Module):
-    """The decoder; ``token_nll(ids, mask)`` is its scoring entry point."""
+    """The decoder: ``packed_nll(ids, cu, max_len)`` scores a flat stream
+    of sequences, ``token_nll(ids, mask)`` right-padded rows."""
 
     returns_nll = True
+    packs_sequences = True
 
     def __init__(self, cfg: MoonlightConfig) -> None:
         super().__init__()
@@ -293,26 +338,29 @@ class MoonlightLM(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
         self.lm_head = _linear(cfg.hidden_size, cfg.vocab_size, cfg.dtype)
 
-    def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """The final norm's output ``[B, T, D]`` (float32) of right-padded
-        ``ids``; ``mask`` is 1 on real tokens."""
-        c = self.cfg
-        cos, sin = rope_tables(ids.shape[1], c.qk_rope_head_dim, c.rope_theta, ids.device)
+    def hidden(self, ids: torch.Tensor, cu: torch.Tensor, max_len: int,
+               routed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final norm's output ``[N, D]`` (float32) of the flat token
+        stream ``ids [N]``: sequences bounded by ``cu [S+1]`` (int32, on
+        ``ids``' device), the longest ``max_len`` tokens, each attending to
+        itself alone with positions from 0.  ``routed [N]`` (bool) is False
+        for tokens the experts skip (padding); by default every token is
+        routed."""
+        c, n = self.cfg, ids.shape[0]
+        cos, sin = rope_tables(max_len, c.qk_rope_head_dim, c.rope_theta, ids.device)
+        pos = positions(cu, n)
+        cos, sin = cos[pos], sin[pos]
+        if routed is None:
+            routed = torch.ones(n, dtype=torch.bool, device=ids.device)
         x = self.embed_tokens(ids).float()
-        routed = mask.bool()
         for layer in self.layers:
-            x = layer(x, routed, cos, sin)
+            x = layer(x, routed, cos, sin, cu, max_len)
         return self.norm(x)
 
-    @torch.no_grad()
-    def token_nll(self, ids: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """``(nll [B, T-1], valid [B, T-1])`` as ``lm.token_nll`` returns
-        them: position ``i`` is the NLL of token ``i+1``; the head runs
-        over ``logit_chunk`` rows at a time."""
-        b, t = ids.shape
-        x = self.hidden(ids, mask)[:, :-1].to(self.cfg.dtype).reshape(b * (t - 1), -1)
-        target = ids[:, 1:].reshape(-1).long()
-        nll = torch.empty(b * (t - 1), dtype=torch.float32, device=ids.device)
+    def _head_nll(self, x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """float32 NLL of ``target [M]`` under the head over ``x [M, D]``,
+        ``logit_chunk`` rows at a time."""
+        nll = torch.empty(target.numel(), dtype=torch.float32, device=x.device)
         step = self.cfg.logit_chunk
         with span("dewi.lm.head"):
             for a in range(0, nll.numel(), step):
@@ -320,6 +368,28 @@ class MoonlightLM(nn.Module):
                 logits = self.lm_head(x[a:a + step]).float()
                 picked = logits.gather(-1, target[a:a + step, None]).squeeze(-1)
                 nll[a:a + step] = torch.logsumexp(logits, -1) - picked
+        return nll
+
+    @torch.no_grad()
+    def packed_nll(self, ids: torch.Tensor, cu: torch.Tensor, max_len: int) -> torch.Tensor:
+        """``[N - S]`` float32: the NLL of each token after the first of
+        each sequence of the flat stream ``ids [N]`` (as ``hidden``), in
+        order; sequence ``s`` holds ``cu[s] - s .. cu[s+1] - s - 1``."""
+        keep = scored_positions(cu, ids.shape[0])
+        x = self.hidden(ids, cu, max_len)[keep].to(self.cfg.dtype)
+        return self._head_nll(x, ids[keep + 1].long())
+
+    @torch.no_grad()
+    def token_nll(self, ids: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``(nll [B, T-1], valid [B, T-1])`` of right-padded ``ids [B, T]``
+        as ``lm.token_nll`` returns them: position ``i`` is the NLL of token
+        ``i+1``.  Each row is one sequence of the flat forward, its padding
+        behind the real tokens (hidden by the causal mask) and not routed."""
+        b, t = ids.shape
+        cu = torch.arange(0, (b + 1) * t, t, dtype=torch.int32, device=ids.device)
+        x = self.hidden(ids.reshape(-1), cu, t, mask.reshape(-1).bool()).view(b, t, -1)
+        nll = self._head_nll(x[:, :-1].to(self.cfg.dtype).reshape(b * (t - 1), -1),
+                             ids[:, 1:].reshape(-1).long())
         return nll.view(b, t - 1), mask[:, 1:].bool()
 
     def flush_counts(self) -> None:
@@ -378,4 +448,4 @@ def moonlight_config(name: str = "moonlight-16b-a3b", **over) -> MoonlightConfig
 
 __all__ = ["MoonlightConfig", "MoonlightLM", "MOONLIGHT_PRESETS", "moonlight_config",
            "init_moonlight", "route", "rope_tables", "apply_rope", "grouped_mm",
-           "grouped_mm_loop"]
+           "grouped_mm_loop", "causal_varlen", "positions", "scored_positions"]

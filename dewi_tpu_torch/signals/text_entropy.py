@@ -27,13 +27,19 @@ with the same texts and gets the same results.
 the vocabulary the tokenizer's) or a Moonlight preset
 (``models.moonlight.MOONLIGHT_PRESETS``: its own vocabulary, which must hold
 the tokenizer's ids; built on the device in its own dtype; the model
-returns the NLL itself, from a head computed in token chunks).
+returns the NLL itself, from a head computed in token chunks).  A model
+that declares ``packs_sequences`` (Moonlight) takes the packed route
+without a data-parallel ``mesh``: every document of at most ``chip_len``
+tokens and every window of the longer ones is one sequence of flat
+forwards that carry no padding (``_compute_packed``); the buckets and the
+window rows above are the other models' route.
 
 While a ``torch.profiler`` session records, the estimator names its stages
-(``dewi.text_entropy.long``, ``.buckets``, ``.fetch``) and counts the
-forwards, the token slots they carry, the real tokens among them, the
-causal (query, key) pairs of the real tokens, the long documents' windows
-and the forwards that carry them (``text.*``;
+(``dewi.text_entropy.long``, ``.buckets``, ``.packed``, ``.fetch``) and
+counts the forwards, the token slots they carry, the real tokens among
+them, the causal (query, key) pairs of the real tokens (a sequence's
+alone on the packed route), the sequences a packed forward carries, the
+long documents' windows and the forwards that carry them (``text.*``;
 ``utils.profiling.trace_stats``); at each ``.fetch`` it adds the counts a
 model summed on the device.
 """
@@ -87,6 +93,25 @@ def _result_from_stream(arr: np.ndarray) -> TextEntropyResult:
         q90_entropy=float(np.quantile(arr, 0.9)),
         q99_entropy=float(np.quantile(arr, 0.99)),
     )
+
+
+def plan_forwards(lens: np.ndarray, cap: int) -> List[slice]:
+    """Cut sequences of ``lens`` tokens (each at most ``cap``), in their
+    order, into the fewest forwards of at most ``cap`` tokens that hold
+    them, each cut at the sequence boundary nearest an equal share of the
+    tokens."""
+    ends = np.cumsum(lens)
+    total = int(ends[-1]) if len(ends) else 0
+    k = max(-(-total // cap), 1)
+    while True:
+        cuts = [0]
+        for j in range(1, k):
+            cuts.append(max(int(np.abs(ends - total * j / k).argmin()) + 1, cuts[-1]))
+        cuts.append(len(lens))
+        parts = [slice(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+        if all(int(lens[p].sum()) <= cap for p in parts):
+            return parts
+        k += 1
 
 
 class TextEntropyEstimator:
@@ -172,6 +197,9 @@ class TextEntropyEstimator:
                 if self.ring_mesh is not None:
                     self._ring_replicate(m)
         self._qs = torch.tensor(self.quantiles, dtype=torch.float32, device=self.device)
+        # A model that scores a flat stream of sequences takes the packed
+        # route (one card, no data-parallel mesh); the others the buckets.
+        self._packs = bool(getattr(self.model, "packs_sequences", False)) and mesh is None
 
     def _ring_replicate(self, module: torch.nn.Module) -> None:
         """Give ``module`` the first rank's weights on every rank of the
@@ -267,6 +295,8 @@ class TextEntropyEstimator:
         if not len(texts):
             return []
         bs = self._dp.round_batch(batch_size or self.batch_size)
+        if self._packs:
+            return self._compute_packed(texts, bs, with_tokens=True)
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         results: List[Optional[TextEntropyResult]] = [None] * len(texts)
@@ -376,6 +406,122 @@ class TextEntropyEstimator:
                    for i, s in toks.items())
         return out
 
+    # -- the packed route ------------------------------------------------------
+
+    def _compute_packed(self, texts: Sequence[str], bs: int,
+                        with_tokens: bool) -> List[TextEntropyResult]:
+        """Every document's result from flat forwards of whole sequences.
+
+        Each document of at most ``chip_len`` tokens is one sequence; a
+        longer one is cut into ``_compute_long``'s windows, each one
+        sequence.  The sequences, sorted by length, are cut at their
+        boundaries into as few forwards of at most ``bs * chip_len`` tokens
+        as hold them, of near-equal sizes (``plan_forwards``); a forward
+        carries real tokens alone, each sequence attending to itself.  A
+        short document's mean and quantiles come from its NLL scattered into
+        a ``[documents, longest]`` matrix on the device; the windows' NLL
+        streams are merged on the host as ``_compute_long`` merges them.
+        Everything stays on the device until one copy after the last
+        forward.
+        """
+        t = self.chip_len
+        overlap = t // 4
+        stride = t - overlap
+        seqs: List[np.ndarray] = []
+        owner: List[int] = []  # the document of each sequence
+        long_docs: List[int] = []
+        for i, text in enumerate(texts):
+            ids = np.asarray(self.tokenizer.encode(text, 1 << 30), dtype=np.int32)
+            if len(ids) > t:
+                long_docs.append(i)
+                starts = range(0, max(len(ids) - overlap, 1), stride)
+                seqs.extend(ids[a:a + t] for a in starts)
+                owner.extend([i] * len(starts))
+            elif len(ids):
+                seqs.append(ids)
+                owner.append(i)
+        is_window = np.isin(np.asarray(owner, dtype=np.int64), long_docs)
+        if long_docs:
+            count("text.windows", int(is_window.sum()))
+        lens = np.array([len(x) for x in seqs], dtype=np.int64)
+        order = np.argsort(lens, kind="stable")
+        stats: List[tuple] = []    # (documents, mean, quantiles) a forward, on the device
+        streams: List[tuple] = []  # (sequences, NLL) a forward, on the device
+        with span("dewi.text_entropy.packed"):
+            for part in plan_forwards(lens[order], bs * t):
+                picked = order[part]
+                nll, docs, mean, qs = self._score_packed([seqs[j] for j in picked],
+                                                         is_window[picked])
+                stats.append(([owner[j] for j in picked[docs]], mean, qs))
+                if with_tokens or is_window[picked].any():
+                    streams.append((picked, nll))
+            with span("dewi.text_entropy.fetch"):
+                host_stats = [(d, m.cpu().numpy(), q.cpu().numpy()) for d, m, q in stats]
+                host_streams = [(p, x.cpu().numpy()) for p, x in streams]
+                self._flush_counts()
+        results = [_result_from_stream(np.zeros(0, np.float32)) for _ in texts]
+        q90_col = self.quantiles.index(0.9) if 0.9 in self.quantiles else 0
+        for docs, mean, qs in host_stats:
+            for row, i in enumerate(docs):
+                results[i] = TextEntropyResult([], float(mean[row]), float(qs[row, q90_col]),
+                                               float(qs[row, -1]))
+        windows: Dict[int, List[tuple]] = {}
+        for picked, nll in host_streams:
+            at = 0
+            for j in picked:
+                stream = nll[at:at + lens[j] - 1]
+                at += lens[j] - 1
+                if is_window[j]:
+                    windows.setdefault(owner[j], []).append((j, stream))
+                elif with_tokens:
+                    results[owner[j]].token_entropies = stream.tolist()
+        for i, parts in windows.items():
+            parts.sort(key=lambda x: x[0])  # the document's windows in order
+            merged = [parts[0][1]] + [x[overlap - 1:] for _, x in parts[1:]]
+            results[i] = _result_from_stream(np.concatenate(merged).astype(np.float32))
+        return results
+
+    def _score_packed(self, seqs: List[np.ndarray], is_window: np.ndarray) -> tuple:
+        """One flat forward of ``seqs``: ``(nll, docs, mean, qs)``, the
+        flat NLL (``MoonlightLM.packed_nll``), the positions in ``seqs``
+        of the whole documents, and their mean and quantiles, on the
+        device.  Ids, boundaries and the scatter's index go up in one copy."""
+        lens = np.array([len(x) for x in seqs], dtype=np.int64)
+        n, n_seq = int(lens.sum()), len(seqs)
+        count("text.forwards")
+        count("text.token_slots", n)
+        count("text.tokens", n)
+        count("text.attention_pairs", int((lens * (lens + 1) // 2).sum()))
+        count("text.sequences", n_seq)
+        if is_window.any():
+            count("text.window_forwards")
+        cu = np.zeros(n_seq + 1, dtype=np.int64)
+        np.cumsum(lens, out=cu[1:])
+        # Scatter index of each scored token: a document's row and column of
+        # the [documents, width] matrix, a window's the spare last slot.
+        docs = np.flatnonzero(~is_window)
+        width = max(int(lens[docs].max(initial=1)) - 1, 1)
+        row = np.full(n_seq, -1, dtype=np.int64)
+        row[docs] = np.arange(len(docs))
+        scored = lens - 1
+        seq_of = np.repeat(np.arange(n_seq), scored)
+        col = np.arange(int(scored.sum())) - np.repeat(cu[:-1] - np.arange(n_seq), scored)
+        spare = len(docs) * width
+        dest = np.where(row[seq_of] >= 0, row[seq_of] * width + col, spare)
+        buf = torch.from_numpy(np.concatenate([np.concatenate(seqs).astype(np.int64), cu, dest]))
+        if self.device.type == "cuda":
+            buf = buf.pin_memory()
+        buf = buf.to(self.device, non_blocking=True)
+        ids, cu_t, dest_t = buf[:n], buf[n:n + n_seq + 1].to(torch.int32), buf[n + n_seq + 1:]
+        nll = self.model.packed_nll(ids, cu_t, int(lens.max()))
+        vals = torch.zeros(spare + 1, dtype=torch.float32, device=self.device)
+        valid = torch.zeros(spare + 1, dtype=torch.float32, device=self.device)
+        vals[dest_t] = nll
+        valid.index_fill_(0, dest_t, 1.0)
+        mean, qs = masked_mean_and_quantiles(vals[:spare].view(-1, width),
+                                             valid[:spare].view(-1, width), self._qs)
+        return nll, docs, mean, qs
+
     def batch_compute_stats(
         self,
         texts: Sequence[str],
@@ -390,6 +536,12 @@ class TextEntropyEstimator:
         if not len(texts):
             return means, q90s, q99s
         bs = self._dp.round_batch(batch_size or self.batch_size)
+        if self._packs:
+            for i, r in enumerate(self._compute_packed(texts, bs, with_tokens=False)):
+                means[i], q90s[i], q99s[i] = r.mean_entropy, r.q90_entropy, r.q99_entropy
+            if progress is not None:
+                progress(len(texts))
+            return means, q90s, q99s
         use_domain = relative_to_domain and self.domain_model is not None
         buckets, long_idx = self._buckets(texts)
         if long_idx:
@@ -429,4 +581,4 @@ class TextEntropyEstimator:
         return self.compute_entropy(text, **kwargs)
 
 
-__all__ = ["TextEntropyEstimator", "TextEntropyResult"]
+__all__ = ["TextEntropyEstimator", "TextEntropyResult", "plan_forwards"]

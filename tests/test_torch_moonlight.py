@@ -24,14 +24,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import moonlight_reference as ref
-from dewi_tpu_torch.models.moonlight import (MoE, grouped_mm, grouped_mm_loop, init_moonlight,
-                                             moonlight_config, route)
+from dewi_tpu_torch.models.moonlight import (MOONLIGHT_PRESETS, MoE, grouped_mm,
+                                             grouped_mm_loop, init_moonlight, moonlight_config,
+                                             route)
 from dewi_tpu_torch.signals.text_entropy import TextEntropyEstimator
 from dewi_tpu_torch.utils.profiling import reset_trace_stats, trace_stats
 
@@ -103,8 +105,10 @@ def test_chunked_nll_equals_full_logits(chunk):
     m = _model(6, logit_chunk=chunk)
     ids, mask = _batch([30, 12], 6)
     nll, _ = m.token_nll(ids, mask)
+    b, t = ids.shape
+    cu = torch.arange(0, (b + 1) * t, t, dtype=torch.int32)
     with torch.no_grad():
-        x = m.hidden(ids, mask)[:, :-1]
+        x = m.hidden(ids.reshape(-1), cu, t, mask.reshape(-1).bool()).view(b, t, -1)[:, :-1]
         logits = m.lm_head(x).float()
         full = torch.logsumexp(logits, -1) - logits.gather(-1, ids[:, 1:, None]).squeeze(-1)
     assert torch.allclose(nll, full, rtol=0, atol=1e-6)
@@ -252,6 +256,116 @@ def test_estimator_packed_windows_match_reference():
     assert np.abs(q90s - want[:, 1]).max() <= 1e-4
 
 
+def _length_texts(lens, seed):
+    """Texts of these byte-tokenizer lengths (a BOS, then a token a byte)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghij klmnop"))
+    return ["".join(rng.choice(letters, n - 1)) for n in lens]
+
+
+def _route_stats(est, path, texts):
+    """``[documents, 2]``: each document's mean and 0.9 quantile."""
+    if path == "batch_compute_stats":
+        means, q90s, _ = est.batch_compute_stats(texts)
+        return np.stack([means, q90s], 1)
+    return np.array([(r.mean_entropy, r.q90_entropy) for r in est.batch_compute(texts)])
+
+
+@pytest.mark.parametrize("path", ["batch_compute_stats", "batch_compute"])
+def test_packed_route_matches_reference_and_single_documents(path):
+    """Short documents and long ones of 2, 3 and 5 windows, packed into
+    flat forwards of at most 4 x 64 tokens: each document's mean and 0.9
+    quantile as the plain reference gives them one document at a time, and
+    as the port gives them for the document alone, to float32 rounding."""
+    est = TextEntropyEstimator("moonlight-tiny", device="cpu", batch_size=4, max_length=64)
+    assert est._packs
+    lens = [2, 9, 64, 30, 80, 17, 150, 45, 230, 63, 33, 1]
+    windows = [len(range(0, max(n - 16, 1), 48)) for n in lens]
+    assert sorted(w for w in windows if w > 1) == [2, 3, 5]
+    texts = _length_texts(lens, 21)
+    assert [len(est.tokenizer.encode(t, 1 << 30)) for t in texts] == lens
+    reset_trace_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = _route_stats(est, path, texts)
+    assert trace_stats()["counters"]["text.forwards"] == 4  # 836 tokens, 256 a forward
+    assert np.array_equal(got[-1], [0.0, 0.0])  # one token: nothing to score
+    want = _ref_stats(texts[:-1], est)
+    assert np.abs(got[:-1, 0] - want[:, 0]).max() <= F32_TOL
+    assert np.abs(got[:-1, 1] - want[:, 1]).max() <= 1e-4
+    one = np.array([_route_stats(est, path, [t])[0] for t in texts])
+    assert np.all(np.abs(got - one) <= 1e-6 * np.abs(one))
+    if path == "batch_compute":
+        w, c = ref.float_weights(est.model.state_dict()), _cfg_dict(est.model)
+        for r, text in zip(est.batch_compute(texts), texts):
+            ids = est.tokenizer.encode(text, 1 << 30)
+            if 1 < len(ids) <= est.chip_len:
+                assert np.abs(np.array(r.token_entropies) - ref.token_nll(ids, w, c).numpy()
+                              ).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_flat_forward_keeps_sequences_apart(dense):
+    """Two sequences in one flat forward score as each does alone, and the
+    second never sees the first: new tokens in the first leave the
+    second's NLL bit for bit through attention, the dense layers and the
+    head (``dense``: every layer dense).  With experts, the other
+    sequence's routing changes the row count of each expert's GEMM, and
+    the CPU's GEMM picks its kernel by row count, so there the NLL holds
+    to float32 rounding."""
+    m = _model(3, **({"first_k_dense_replace": 3} if dense else {}))
+    g = torch.Generator().manual_seed(30)
+    a, a2, b = (torch.randint(0, 258, (n,), generator=g) for n in (37, 37, 50))
+    cu = torch.tensor([0, 37, 87], dtype=torch.int32)
+    both = m.packed_nll(torch.cat([a, b]), cu, 50)
+    assert both.shape == (36 + 49,)
+    for got, seq in ((both[:36], a), (both[36:], b)):
+        alone = m.packed_nll(seq, torch.tensor([0, len(seq)], dtype=torch.int32), len(seq))
+        assert torch.allclose(got, alone, rtol=1e-6, atol=0)
+        want = ref.token_nll(seq.tolist(), ref.float_weights(m.state_dict()), _cfg_dict(m))
+        assert (got.double() - want).abs().max() <= F32_TOL
+    other = m.packed_nll(torch.cat([a2, b]), cu, 50)
+    assert not torch.allclose(other[:36], both[:36], rtol=1e-3, atol=0)
+    if dense:
+        assert torch.equal(other[36:], both[36:])
+    else:
+        assert torch.allclose(other[36:], both[36:], rtol=1e-6, atol=0)
+
+
+def test_rope_positions_restart_per_sequence():
+    from dewi_tpu_torch.models.moonlight import positions, scored_positions
+
+    cu = torch.tensor([0, 3, 4, 9], dtype=torch.int32)
+    assert positions(cu, 9).tolist() == [0, 1, 2, 0, 0, 1, 2, 3, 4]
+    assert scored_positions(cu, 9).tolist() == [0, 1, 4, 5, 6, 7]
+    m = _model(4)
+    s = torch.randint(0, 258, (20,), generator=torch.Generator().manual_seed(31))
+    with torch.no_grad():
+        twice = m.hidden(torch.cat([s, s]), torch.tensor([0, 20, 40], dtype=torch.int32), 20)
+        joined = m.hidden(torch.cat([s, s]), torch.tensor([0, 40], dtype=torch.int32), 40)
+    # the second copy starts again at position 0 ...
+    assert torch.allclose(twice[20:], twice[:20], rtol=0, atol=1e-6)
+    # ... where, as one sequence, its tokens sit at 20..39
+    assert not torch.allclose(joined[20:], twice[20:], rtol=0, atol=1e-3)
+
+
+def test_plan_forwards_cuts_evenly_within_the_cap():
+    from dewi_tpu_torch.signals.text_entropy import plan_forwards
+
+    rng = np.random.default_rng(32)
+    lens = np.sort(np.clip(np.exp(rng.normal(np.log(1247), 1.0, 140)), 2, 8192).astype(int))
+    cap = 16 * 8192
+    parts = plan_forwards(lens, cap)
+    assert [p.start for p in parts] == [0] + [p.stop for p in parts[:-1]]
+    assert parts[-1].stop == len(lens)
+    sizes = [int(lens[p].sum()) for p in parts]
+    assert len(parts) == 3 and max(sizes) <= cap  # 261,358 tokens: 2 would overflow
+    assert max(sizes) - min(sizes) <= 2 * lens.max()
+    # where the even cut overflows the cap, one forward more
+    assert [(p.start, p.stop) for p in plan_forwards(np.array([60, 60, 60]), 100)] == \
+        [(0, 1), (1, 2), (2, 3)]
+    assert plan_forwards(np.array([5]), 100) == [slice(0, 1)]
+
+
 def test_pipeline_process_corpus_matches_reference():
     from dewi_tpu_torch import DewiConfig, DewiPipeline
     from dewi_tpu_torch.corpus import Corpus
@@ -368,3 +482,79 @@ def test_card_grouped_gemm_matches_expert_loop(cuda_device):
     got = grouped_mm(x, w, offs)[:int(offs[-1])].float()
     want = grouped_mm_loop(x, w, offs)[:int(offs[-1])].float()
     assert (got - want).abs().max().item() <= 0.02 * want.abs().max().item()
+
+
+def _web_texts(n, seed):
+    """``n`` documents at web-text's lengths (bytes lognormal, median 1,246,
+    sigma 1, 80 to 32,768), then one of 20,000 bytes: past 8,192 tokens,
+    three windows."""
+    rng = np.random.default_rng(seed)
+    words = ["the", "of", "river", "entropy", "zebra", "quartz", "cat", "und", "index", "a"]
+    lens = np.clip(np.exp(rng.normal(np.log(1246), 1.0, n)), 80, 32768).astype(int).tolist()
+    out = []
+    for size in lens + [20000]:
+        text = " ".join(rng.choice(words, size // 3 + 1))
+        out.append(text[:size])
+    return out
+
+
+@torch.no_grad()
+def _harness_scales(model, seed):
+    """The benchmark's weight scales (``benchmark/harness/moonlight.py``):
+    the embedding N(0, 4^2), kernels N(0, 1/fan_in) and those that write
+    the residual stream times 1/sqrt(54) more, norm scales 1 + 0.02 n, the
+    routing bias 0.02 n; rounded to the model's dtype."""
+    g = torch.Generator(device=model.lm_head.weight.device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        x = torch.randn(p.shape, generator=g, device=p.device)
+        if name == "embed_tokens.weight":
+            x *= 4.0
+        elif name.endswith("norm.weight"):
+            x = 1.0 + 0.02 * x
+        elif name.endswith("e_score_correction_bias"):
+            x *= 0.02
+        else:
+            x /= math.sqrt(p.shape[-1])
+            if name.endswith(("o_proj.weight", "down_proj.weight", "w_down")):
+                x /= math.sqrt(54)
+        p.copy_(x)
+
+
+# The largest gap of a document's mean NLL between the packed route and the
+# document alone, in bfloat16 at the published widths (3 layers, the test's
+# documents, weight seeds 1-4).  A forward of another size takes other GEMM
+# tiles, so bfloat16 rounds another way: the bucket route moved the same
+# documents by up to 3.2e-4 between its 16-row batches and batches of 4 or
+# 1 rows (by under 2e-6 between rows of one batch shape); the packed route
+# measured up to 2.4e-4 against the documents alone.
+CARD_PACKED_TOL = 5e-4
+
+
+@pytest.mark.cuda
+def test_card_packed_route_matches_single_documents(cuda_device, monkeypatch):
+    """Published widths with the first 3 layers (dense, then 2 MoE) in
+    bfloat16 on the benchmark's weight scales, 48 documents at web-text
+    lengths and one of three windows: each document's mean NLL from the
+    packed forwards against the document scored alone; and one packed
+    forward (upload, forward, statistics) never waits for the card."""
+    monkeypatch.setitem(MOONLIGHT_PRESETS, "moonlight-3-layers", {"num_hidden_layers": 3})
+    est = TextEntropyEstimator("moonlight-3-layers", device=cuda_device, batch_size=16,
+                               max_length=8192)
+    _harness_scales(est.model, 1)
+    texts = _web_texts(48, 1)
+    means = est.batch_compute_stats(texts)[0]
+    one = np.array([est.batch_compute_stats([t])[0][0] for t in texts])
+    gap = np.abs(means - one)
+    print("packed vs alone: max", gap.max(), "median", np.median(gap))
+    assert np.isfinite(means).all() and 5.0 < means.mean() < 20.0
+    assert gap.max() <= CARD_PACKED_TOL
+    seqs = [np.asarray(est.tokenizer.encode(t, 8192), dtype=np.int32) for t in texts[:8]]
+    est._score_packed(seqs, np.zeros(8, dtype=bool))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        est._score_packed(seqs, np.zeros(8, dtype=bool))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del est
+    torch.cuda.empty_cache()

@@ -6,7 +6,8 @@
   among the profiler's events, nested as the program nests them, and the
   registry's self time is the total less the children's.
 * The LM's counters equal hand counts on texts of known token counts,
-  where the long documents' windows pack across documents too.
+  where the long documents' windows pack across documents too, and where
+  Moonlight packs whole sequences into flat forwards.
 * The program's results are bit-identical with the profiler on and off.
 * ``process`` with ``runtime.profile`` writes ``profile/spans.json``.
 
@@ -87,6 +88,18 @@ PACKED_HAND = {"text.forwards": 2,
                "text.attention_pairs": _pairs(32, 17, 32, 22, 32, 27),
                "text.windows": 6,
                "text.window_forwards": 2}
+# Moonlight scores flat forwards of whole sequences, at most 4 x 32 = 128
+# tokens a forward: SHORT's five documents and LONG's five windows, 216
+# tokens, sorted by length and cut nearest the half: 120 tokens (5, 9, 10,
+# 17, 17, 30, 32) and 96 (32, 32, 32), both with windows.  No padding, so
+# the slots are the tokens, and the pairs are counted a sequence.
+MOONLIGHT_HAND = {"text.forwards": 2,
+                  "text.token_slots": 216,
+                  "text.tokens": 216,
+                  "text.attention_pairs": _pairs(5, 9, 17, 30, 10, 32, 32, 32, 32, 17),
+                  "text.sequences": 10,
+                  "text.windows": 3 + 2,
+                  "text.window_forwards": 2}
 
 
 @pytest.fixture(autouse=True)
@@ -246,6 +259,21 @@ def test_counters_pack_windows_across_documents(path):
     stats = prof.trace_stats()
     assert stats["counters"] == PACKED_HAND
     assert stats["spans"]["dewi.text_entropy.long"]["count"] == 1
+    assert stats["spans"]["dewi.text_entropy.fetch"]["count"] == 1
+
+
+@pytest.mark.parametrize("path", ["batch_compute_stats", "batch_compute"])
+def test_counters_of_packed_sequences(path):
+    est = TextEntropyEstimator("moonlight-tiny", device="cpu", batch_size=4, max_length=64,
+                               chip_len=32)
+    _traced(lambda: getattr(est, path)(SHORT[:2] + LONG[:1] + SHORT[2:] + LONG[1:]))
+    stats = prof.trace_stats()
+    c = stats["counters"]
+    assert {k: v for k, v in c.items() if k.startswith("text.") and k != "text.logit_chunks"} \
+        == MOONLIGHT_HAND
+    assert c["text.logit_chunks"] == 2 + 1  # 113 and 93 scored tokens, 96 rows a chunk
+    assert c["moe.routed_rows"] == 3 * 2 * 216  # 3 experts a token, 2 MoE layers
+    assert stats["spans"]["dewi.text_entropy.packed"]["count"] == 1
     assert stats["spans"]["dewi.text_entropy.fetch"]["count"] == 1
 
 
