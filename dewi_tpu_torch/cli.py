@@ -249,7 +249,7 @@ def cmd_process(args: argparse.Namespace) -> int:
         from contextlib import nullcontext
 
         from .config import DewiConfig
-        from .pipelines import DewiPipeline
+        from .pipelines import DewiPipeline, _StageCheckpoint
         from .utils.device import resolve_device
         from .utils.profiling import reset_trace_stats, torch_trace, trace_stats, write_metrics
 
@@ -291,36 +291,29 @@ def cmd_process(args: argparse.Namespace) -> int:
 
         trace = torch_trace(str(out / "profile")) if cfg.runtime.profile else nullcontext()
         reset_trace_stats()
-        corpus = None
         with trace:
+            # Signals, scores and the index flow as arrays; the Documents get
+            # the results back for the artifacts.
+            corpus = _as_corpus(documents, args.texts, args.images, args.embeddings)
             if shard_size:
-                # Sharded columnar stream: per-shard signals with resume,
-                # global redundancy, one fused fit-and-score.
-                corpus = _as_corpus(documents, args.texts, args.images, args.embeddings)
+                # Sharded stream: per-shard signals with resume, global
+                # redundancy, one fused fit-and-score.
                 pipeline.process_stream_corpus(
                     corpus, shard_size=shard_size, progress=True,
                     checkpoint_dir=checkpoint_dir,
                     delta=cfg.scoring.delta, mode=cfg.scoring.mode)
-                docs = corpus.apply_to_documents(documents)
-            elif checkpoint_dir:
-                # Stage checkpoints keyed to the Document corpus digest.
-                docs = pipeline.compute_signals(documents, progress=True,
-                                                checkpoint_dir=checkpoint_dir)
-                docs = pipeline.compute_dewi_scores(docs, delta=cfg.scoring.delta,
-                                                    mode=cfg.scoring.mode)
             else:
-                # Columnar path: signals, scores and the index flow as arrays;
-                # the Documents get the results back for the artifacts.
-                corpus = _as_corpus(documents, args.texts, args.images, args.embeddings)
-                pipeline.process_corpus(corpus, delta=cfg.scoring.delta,
-                                        mode=cfg.scoring.mode, progress=True)
-                docs = corpus.apply_to_documents(documents)
+                # With --checkpoint-dir: stage checkpoints keyed to the
+                # Documents' digest, the reference's format.
+                pipeline.process_corpus(
+                    corpus, delta=cfg.scoring.delta, mode=cfg.scoring.mode, progress=True,
+                    _ckpt=_StageCheckpoint(checkpoint_dir, documents, pipeline.mesh))
+        docs = corpus.apply_to_documents(documents)
         if cfg.runtime.profile:
             write_metrics(trace_stats(), out / "profile" / "spans.json")
             echo(f"✓ torch.profiler trace written to {out / 'profile'} (spans in spans.json)")
         _save_results(docs, out)
-        index = (pipeline.build_index_corpus(corpus) if corpus is not None
-                 else pipeline.build_index(docs))
+        index = pipeline.build_index_corpus(corpus)
         index.save(out / "index")
         echo(f"✓ Index saved to {out / 'index'}")
         echo(f"✓ Processed {len(docs)} documents. Results saved to {out}")

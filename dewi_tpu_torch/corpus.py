@@ -10,10 +10,10 @@ the whole corpus as columns — ``ids`` (list), ``texts`` (list),
 order), ``dewi`` ``[N]`` — so every stage reads and writes array slices and
 the index handoff is two ``np`` ops, no per-doc Python anywhere.
 
-``Document`` stays as the parity veneer: :meth:`Corpus.from_documents` /
-:meth:`Corpus.to_documents` convert at the boundary, and
-``DewiPipeline.process_corpus`` runs the same stages (identical numerics,
-same estimators) columnar end to end.
+``Document`` stays as a veneer: :meth:`Corpus.from_documents` /
+:meth:`Corpus.to_documents` / :meth:`Corpus.apply_to_documents` convert at
+the boundary, and ``DewiPipeline``'s ``Document`` API runs its Documents
+through the columnar stages with them.
 """
 
 from __future__ import annotations
@@ -128,9 +128,8 @@ class Corpus:
             )
         # External embeddings may be partial (e.g. the CLI's --embeddings
         # file alongside --texts): carry the supplied rows plus a mask so
-        # ensure_embeddings_corpus fills ONLY the missing ones — matching
-        # the object path's per-doc ``ensure_embeddings`` semantics instead
-        # of silently discarding and re-zeroing user vectors.
+        # ensure_embeddings_corpus fills ONLY the missing ones instead of
+        # silently discarding and re-zeroing user vectors.
         emb = None
         ext_mask = np.array([d.embedding is not None for d in documents],
                             bool)
@@ -142,8 +141,8 @@ class Corpus:
             if len(dims) != 1:
                 # Silently dropping user vectors here would re-encode the
                 # whole corpus in a different embedding space than the
-                # user's queries — fail loudly instead (the object path
-                # also fails on mixed dims, at index add time).
+                # user's queries — fail loudly instead (an index could not
+                # hold mixed dims either).
                 raise ValueError(
                     "Documents carry external embeddings of mixed "
                     f"dimensions {sorted(dims)}; supply one dimension."
@@ -168,8 +167,8 @@ class Corpus:
         return corpus
 
     def to_documents(self) -> List:
-        """Materialize the parity ``Document`` view (None where a modality
-        was absent, matching the object pipeline's semantics)."""
+        """Materialize the ``Document`` view (None where a modality was
+        absent: that signal was not computed)."""
         from .pipelines import Document
 
         docs = [

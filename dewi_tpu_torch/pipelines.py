@@ -3,13 +3,16 @@
 Counterpart of ``dewi_tpu/pipelines.py``, with the same stages, checkpoints
 and results:
 
-* the object path — ``Document`` lists through ``compute_signals``,
-  ``compute_dewi_scores`` and ``build_index`` — and the columnar path —
-  a :class:`~dewi_tpu_torch.corpus.Corpus` through ``process_corpus``,
-  ``process_stream_corpus`` and ``build_index_corpus``;
-* stage checkpoints (``<dir>/<stage>.npz`` with a corpus digest) that hash
-  the same bytes as the reference's, so a checkpoint directory written by
-  either package resumes in the other;
+* one implementation of every stage, over a
+  :class:`~dewi_tpu_torch.corpus.Corpus` column store (``process_corpus``,
+  ``compute_signals_corpus``, ``process_stream_corpus``,
+  ``build_index_corpus``), and the ``Document`` API (``compute_signals``,
+  ``ensure_embeddings``, ``compute_dewi_scores``, ``process_stream``,
+  ``build_index``) as a veneer over it: each of its methods columnarises
+  its Documents, runs the columnar stage and writes the results back;
+* stage checkpoints (``<dir>/<stage>.npz`` with a digest of the Documents)
+  that hash the same bytes as the reference's, so a checkpoint directory
+  written by either package resumes in the other;
 * documents without embeddings get CLIP embeddings (text tower, image
   tower, or the normalized mean of both), and the index records the
   encoder's provenance (``cross_modal``, ``mixed`` or ``external``).
@@ -24,10 +27,10 @@ signals, so every rank ends with the same signals and scores as one
 device would.  The index handoff and every file write happen on rank 0,
 while the other ranks wait at a barrier.
 
-While a ``torch.profiler`` session records, the columnar path names its
-calls and stages as spans (``dewi.process_corpus``, ``dewi.text_entropy``,
-... ``dewi.index.build``; ``utils.profiling.span``), which never
-synchronise the device.
+While a ``torch.profiler`` session records, the stages name their calls
+as spans (``dewi.process_corpus``, ``dewi.text_entropy``, ...
+``dewi.index.build``; ``utils.profiling.span``) under either API; a span
+never synchronises the device.
 """
 
 from __future__ import annotations
@@ -112,12 +115,8 @@ class _StageCheckpoint:
                  documents: Any, mesh: Any = None) -> None:
         self.dir = Path(directory) if directory else None
         self.mesh = mesh  # under a mesh, rank 0 writes
-        if isinstance(documents, int):  # legacy: count only, no digest
-            self.n_docs = documents
-            self.digest = ""
-        else:
-            self.n_docs = len(documents)
-            self.digest = self._digest(documents)
+        self.n_docs = len(documents)
+        self.digest = self._digest(documents) if self.dir else ""
         if self.dir:
             self.dir.mkdir(parents=True, exist_ok=True)
 
@@ -183,6 +182,9 @@ class _StageCheckpoint:
                                               digest=self.digest, **arrays))
 
 
+_NO_CHECKPOINT = _StageCheckpoint(None, ())  # loads nothing, saves nothing
+
+
 def _on_rank0(mesh: Any, fn: Any) -> Any:
     """``fn()`` on rank 0 only (its value there, ``None`` elsewhere); under a
     mesh every rank then waits at a barrier, so no rank reads a file before
@@ -194,7 +196,7 @@ def _on_rank0(mesh: Any, fn: Any) -> Any:
 
 
 class _CorpusImages:
-    """Decode-once image cache for one ``compute_signals`` call.
+    """Decode-once image cache for one ``compute_signals_corpus`` call.
 
     The corpus is decoded once at the largest resolution any stage needs
     (threaded, JPEG draft mode, uint8 — :mod:`dewi_tpu_torch.io`) and every
@@ -372,7 +374,11 @@ class DewiPipeline:
             )
         return self._noise
 
-    # -- signals --------------------------------------------------------------
+    # -- the Document API: a veneer over the columnar stages ------------------
+    #
+    # Each method columnarises its Documents (Corpus.from_documents), runs the
+    # columnar stage and writes the results back, so both APIs run one
+    # implementation of every stage and record the same spans.
 
     def compute_signals(
         self,
@@ -381,112 +387,142 @@ class DewiPipeline:
         checkpoint_dir: Optional[PathLike] = None,
         include_redundancy: bool = True,
     ) -> List[Document]:
-        """Fill the seven signal fields of every document, stage by stage.
+        """Fill the seven signal fields of every document, stage by stage
+        (:meth:`compute_signals_corpus` over the Documents' columns).
 
+        ``checkpoint_dir`` keeps each stage in ``<dir>/<stage>.npz``, keyed
+        to the Documents' digest; a later call on the same Documents loads
+        the stages found there instead of running them.
         ``include_redundancy=False`` defers the (cross-document) redundancy
-        stage — used by :meth:`process_stream`, which runs it globally after
-        all shards so sharding never changes scores.
+        stage and leaves that field as it was — used by
+        :meth:`process_stream`, which runs it globally after all shards so
+        sharding never changes scores.
         """
         if not documents:
             return []
-        ckpt = _StageCheckpoint(checkpoint_dir, documents, self.mesh)
+        from .corpus import Corpus
 
-        def log_stage(name: str) -> None:
+        corpus = Corpus.from_documents(documents)
+        self.compute_signals_corpus(
+            corpus, progress=progress, include_redundancy=include_redundancy,
+            _ckpt=_StageCheckpoint(checkpoint_dir, documents, self.mesh))
+        self._note_clip_rows(corpus)
+        kept = None if include_redundancy else [d.redundancy for d in documents]
+        corpus.apply_to_documents(documents)
+        if kept is not None:
+            for d, r in zip(documents, kept):
+                d.redundancy = r
+        return documents
+
+    def ensure_embeddings(
+        self, documents: List[Document],
+        images: Optional[_CorpusImages] = None,
+    ) -> List[Document]:
+        """Fill missing ``embedding`` fields from the CLIP towers
+        (:meth:`ensure_embeddings_corpus`; ``images`` is a decode-once cache
+        of the image documents, keyed by their positions)."""
+        if documents:
+            self._embedded(documents, images)
+        return documents
+
+    def compute_dewi_scores(
+        self,
+        documents: List[Document],
+        weights: Optional[Union[Dict[str, float], Weights]] = None,
+        delta: Optional[float] = None,
+        mode: Optional[str] = None,
+    ) -> List[Document]:
+        """Fit robust stats and score all docs in one matrix call
+        (:meth:`_score_corpus`; a signal left ``None`` counts as 0)."""
+        if not documents:
+            return []
+        from .corpus import Corpus
+
+        corpus = self._score_corpus(Corpus.from_documents(documents),
+                                    weights, delta, mode)
+        for d, s in zip(documents, corpus.dewi):
+            d.dewi_score = float(s)
+        return documents
+
+    def process_stream(
+        self,
+        documents: List[Document],
+        shard_size: Optional[int] = None,
+        checkpoint_dir: Optional[PathLike] = None,
+        weights: Any = None,
+        delta: Optional[float] = None,
+        mode: Optional[str] = None,
+        progress: bool = False,
+    ) -> List[Document]:
+        """Sharded signal computation with per-shard resume + global scoring.
+
+        Corpora larger than host or device memory process in
+        ``shard_size`` chunks; each shard's signal stages checkpoint
+        independently under ``<dir>/shard_NNNNN/`` (the reference's layout;
+        a restarted run skips completed stages), and the redundancy stage
+        (``<dir>/redundancy.npz``) and the robust statistics run GLOBALLY
+        over all shards — identical results to the monolithic path.
+        """
+        if not documents:
+            return []
+        from .corpus import Corpus
+
+        shard_size = int(shard_size or self.config.runtime.shard_size)
+        ckpt_root = Path(checkpoint_dir) if checkpoint_dir else None
+        n_shards = (len(documents) + shard_size - 1) // shard_size
+        for s in range(n_shards):
+            shard = documents[s * shard_size : (s + 1) * shard_size]
+            sub = ckpt_root / f"shard_{s:05d}" if ckpt_root else None
             if progress:
-                print(f"Computing {name}...")
+                print(f"Shard {s + 1}/{n_shards} ({len(shard)} docs)")
+            self.compute_signals(shard, progress=progress, checkpoint_dir=sub,
+                                 include_redundancy=False)
+        corpus = Corpus.from_documents(documents)
+        with span("dewi.redundancy"):
+            self._redundancy_corpus(
+                corpus, ckpt=_StageCheckpoint(ckpt_root, documents, self.mesh))
+        self._score_corpus(corpus, weights, delta, mode)
+        corpus.apply_to_documents(documents)
+        return documents
 
-        def meter(name: str, total: int) -> "ProgressMeter":
-            # Per-batch docs/s + ETA inside multi-minute stages, throttled.
-            from .utils.progress import ProgressMeter
+    def build_index(self, documents: List[Document],
+                    **index_kwargs: Any) -> Any:
+        """Documents -> built :class:`DewiIndex` (embeddings + payloads;
+        :meth:`build_index_corpus`).  Under a mesh: rank 0's index, ``None``
+        on the other ranks."""
+        if not documents:
+            raise ValueError("No documents to index")
+        return self.build_index_corpus(self._embedded(documents),
+                                       **index_kwargs)
 
-            return ProgressMeter(total, name, enabled=bool(progress))
+    def _embedded(self, documents: List[Document],
+                  images: Optional[_CorpusImages] = None) -> Any:
+        """The Documents' corpus with every embedding filled: the CLIP
+        towers fill the missing ones, which the Documents then carry too."""
+        from .corpus import Corpus
 
-        # Stage 1: text entropy (bucketed LM batches).
-        text_idx = [i for i, d in enumerate(documents) if d.text]
-        if text_idx:
-            cached = ckpt.load("text")
-            if cached is None:
-                log_stage("text entropy")
-                m = meter("text entropy", len(text_idx))
-                # Stats-only path: aggregates come straight off device, no
-                # per-token host materialization (the corpus-scale win).
-                means, q90s, _ = self.text_entropy.batch_compute_stats(
-                    [documents[i].text for i in text_idx],
-                    progress=m.update,
-                )
-                m.close()
-                ckpt.save("text", idx=np.array(text_idx), means=means, q90s=q90s)
-            else:
-                means, q90s = cached["means"], cached["q90s"]
-            for j, i in enumerate(text_idx):
-                documents[i].ht_mean = float(means[j])
-                documents[i].ht_q90 = float(q90s[j])
+        corpus = self._note_clip_rows(self.ensure_embeddings_corpus(
+            Corpus.from_documents(documents), cache=images))
+        for d, e in zip(documents, corpus.embeddings):
+            if d.embedding is None:
+                d.embedding = e
+        return corpus
 
-        # Stage 2: image entropy (padded MAE batches, per-patch quantiles).
-        img_idx = [
-            i for i, d in enumerate(documents) if d.image_source() is not None
-        ]
-        images = self._decode_images(documents, img_idx) if img_idx else None
-        if img_idx:
-            cached = ckpt.load("image")
-            if cached is None:
-                log_stage("image entropy")
-                m = meter("image entropy", len(img_idx))
-                means, q90s = self.image_entropy.batch_compute_stats(
-                    images.rows(img_idx, self.image_entropy.image_size),
-                    progress=m.update,
-                )
-                m.close()
-                ckpt.save("image", idx=np.array(img_idx), means=means, q90s=q90s)
-            else:
-                means, q90s = cached["means"], cached["q90s"]
-            for j, i in enumerate(img_idx):
-                documents[i].hi_mean = float(means[j])
-                documents[i].hi_q90 = float(q90s[j])
+    def _note_clip_rows(self, corpus: Any) -> Any:
+        """Provenance across Document API calls: remember the rows the CLIP
+        towers filled, and mark as CLIP-filled every row whose Document this
+        pipeline embedded, in this call or an earlier one (the Documents
+        then carry those embeddings as if supplied)."""
+        filled = getattr(corpus, "clip_filled_mask", None)
+        if filled is not None:
+            self._clip_embedded_ids.update(
+                corpus.ids[i] for i in np.flatnonzero(filled))
+        corpus.clip_filled_mask = np.array(
+            [i in self._clip_embedded_ids for i in corpus.ids], bool)
+        corpus.clip_embedded = bool(corpus.clip_filled_mask.all())
+        return corpus
 
-        # Stage 3: cross-modal dependency (CLIP diagonal).
-        pair_idx = [
-            i for i, d in enumerate(documents)
-            if d.text and d.image_source() is not None
-        ]
-        if pair_idx:
-            cached = ckpt.load("cross_modal")
-            if cached is None:
-                log_stage("cross-modal dependency")
-                m = meter("cross-modal", len(pair_idx))
-                results = self.cross_modal.batch_compute(
-                    [documents[i].text for i in pair_idx],
-                    images.rows(pair_idx, self.cross_modal.cfg.image_size),
-                    progress=m.update,
-                )
-                m.close()
-                sims = np.array([r.info_nce_score for r in results], np.float32)
-                ckpt.save("cross_modal", idx=np.array(pair_idx), sims=sims)
-            else:
-                sims = cached["sims"]
-            for j, i in enumerate(pair_idx):
-                documents[i].I_hat = float(sims[j])
-
-        # Stage 4: embeddings for docs missing them (CLIP towers) —
-        # prerequisite for redundancy and for indexing (§2.4 item 6).
-        self.ensure_embeddings(documents, images=images)
-
-        # Stage 5: redundancy (embedding-space max-offdiag, or hash mode;
-        # cross-document, so process_stream defers it to a global pass).
-        if include_redundancy:
-            log_stage("redundancy")
-            self._redundancy_stage(documents, ckpt, images=images)
-
-        return self._noise_stage(documents, ckpt, log_stage, images=images,
-                                 progress=bool(progress))
-
-    def _decode_images(
-        self, documents: List[Document], img_idx: List[int]
-    ) -> _CorpusImages:
-        """Decode every image document once for all downstream stages."""
-        return self._decode_sources(
-            [documents[i].image_source() for i in img_idx], img_idx
-        )
+    # -- shared helpers -----------------------------------------------------------
 
     def _decode_sources(self, sources: Any,
                         img_idx: Any) -> _CorpusImages:
@@ -537,171 +573,6 @@ class DewiPipeline:
             return int(side["config"]["image_size"])
         return None
 
-    def _noise_stage(self, documents: List[Document], ckpt: Any,
-                     log_stage: Any, images: Any = None,
-                     progress: bool = False) -> List[Document]:
-        """Stage 6: noise (host-side heuristics)."""
-        cached = ckpt.load("noise")
-        if cached is None:
-            log_stage("noise")
-            from .signals.noise import BLUR_SIZE
-
-            # The blur detector needs >= BLUR_SIZE pixels of fidelity; a
-            # smaller cache would shift its verdict, so fall back to the
-            # original sources in that (tiny-model) case.
-            if (
-                images is not None
-                and images.cache is not None
-                and images.cache.base_size >= BLUR_SIZE
-            ):
-                img_list = [
-                    images.source(i) if d.image_source() is not None else None
-                    for i, d in enumerate(documents)
-                ]
-            else:
-                img_list = [d.image_source() for d in documents]
-            from .utils.progress import ProgressMeter
-
-            m = ProgressMeter(len(documents), "noise", enabled=progress)
-            noise = np.array(
-                self.noise.batch_compute(
-                    texts=[d.text for d in documents],
-                    images=img_list,
-                    progress=m.update,
-                ),
-                np.float32,
-            )
-            m.close()
-            ckpt.save("noise", scores=noise)
-        else:
-            noise = cached["scores"]
-        for i, d in enumerate(documents):
-            d.noise = float(noise[i])
-        return documents
-
-    def _redundancy_stage(
-        self, documents: List[Document], ckpt: "_StageCheckpoint",
-        images: Optional[_CorpusImages] = None,
-    ) -> List[Document]:
-        """Global redundancy over an already-embedded document list.
-
-        Modes (config.redundancy): ``text_sim: minhash|simhash`` hashes text
-        docs; ``image_sim: phash`` perceptual-hashes image docs; anything
-        else scores docs by embedding-space max-offdiag similarity.  When
-        hash modes cover only one modality, the remaining docs fall back to
-        the embedding mode, and a doc covered by several modes keeps its max.
-        """
-        cached = ckpt.load("redundancy")
-        if cached is None:
-            scores = np.zeros(len(documents), np.float32)
-            hash_covered: set = set()
-            text_hash = self.config.redundancy.text_sim in ("minhash", "simhash")
-            image_hash = self.config.redundancy.image_sim == "phash"
-            if text_hash:
-                text_idx = [i for i, d in enumerate(documents) if d.text]
-                if text_idx:
-                    scores[np.array(text_idx)] = self.redundancy.score_texts(
-                        [documents[i].text for i in text_idx]
-                    )
-                hash_covered.update(text_idx)
-            if image_hash:
-                img_idx = [
-                    i for i, d in enumerate(documents)
-                    if d.image_source() is not None
-                ]
-                if img_idx:
-                    srcs = (
-                        images.rows(img_idx, 32)  # pHash's DCT resolution
-                        if images is not None
-                        else [documents[i].image_source() for i in img_idx]
-                    )
-                    ph = self.redundancy.score_images(srcs)
-                    scores[np.array(img_idx)] = np.maximum(
-                        scores[np.array(img_idx)], ph
-                    )
-                hash_covered.update(img_idx)
-            rest = (
-                [i for i in range(len(documents)) if i not in hash_covered]
-                if (text_hash or image_hash)
-                else list(range(len(documents)))
-            )
-            by_dim: Dict[int, List[int]] = {}
-            for i in rest:
-                by_dim.setdefault(len(documents[i].embedding), []).append(i)
-            for idxs in by_dim.values():
-                if len(idxs) < 2:
-                    continue
-                emb = np.stack([documents[i].embedding for i in idxs])
-                scores[np.array(idxs)] = np.maximum(
-                    scores[np.array(idxs)], self.redundancy.score(emb)
-                )
-            # Cross-modal density (config.redundancy.cross_modal_density):
-            # multimodal docs carry a JOINT text+image embedding
-            # (ensure_embeddings) — score their neighborhood density in that
-            # joint space and keep the max.  Catches caption+image near-dups
-            # the lexical/perceptual hash modes see as distinct.
-            if self.redundancy.cross_modal_density:
-                both = [
-                    i for i, d in enumerate(documents)
-                    if d.text and d.image_source() is not None
-                    and d.embedding is not None
-                ]
-                if len(both) >= 2:
-                    emb = np.stack([documents[i].embedding for i in both])
-                    dens = self.redundancy.cross_modal_density_scores(emb)
-                    scores[np.array(both)] = np.maximum(
-                        scores[np.array(both)], dens
-                    )
-            ckpt.save("redundancy", scores=np.asarray(scores, np.float32))
-        else:
-            scores = cached["scores"]
-        for i, d in enumerate(documents):
-            d.redundancy = float(scores[i])
-        return documents
-
-    def ensure_embeddings(
-        self, documents: List[Document],
-        images: Optional[_CorpusImages] = None,
-    ) -> List[Document]:
-        """Fill missing ``embedding`` fields from the CLIP towers.
-
-        Text-only docs get text-tower embeddings, image-only docs image-tower
-        embeddings, multimodal docs the normalized mean of both.  All towers
-        emit unit-norm vectors in the same space, so the index can mix them.
-        """
-        missing = [i for i, d in enumerate(documents) if d.embedding is None]
-        self._clip_embedded_ids.update(documents[i].doc_id for i in missing)
-        if not missing:
-            return documents
-        t_idx = [i for i in missing if documents[i].text]
-        v_idx = [
-            i for i in missing if documents[i].image_source() is not None
-        ]
-        t_emb = (
-            self.cross_modal.encode_texts([documents[i].text for i in t_idx])
-            if t_idx else None
-        )
-        v_emb = (
-            self.cross_modal.encode_images(
-                images.rows(v_idx, self.cross_modal.cfg.image_size)
-                if images is not None
-                else [documents[i].image_source() for i in v_idx]
-            )
-            if v_idx else None
-        )
-        dim = self.cross_modal.cfg.d_embed
-        tmap = {i: t_emb[j] for j, i in enumerate(t_idx)} if t_idx else {}
-        vmap = {i: v_emb[j] for j, i in enumerate(v_idx)} if v_idx else {}
-        for i in missing:
-            parts = [m[i] for m in (tmap, vmap) if i in m]
-            if not parts:
-                documents[i].embedding = np.zeros(dim, np.float32)
-                continue
-            e = np.mean(parts, axis=0)
-            n = np.linalg.norm(e)
-            documents[i].embedding = (e / n if n > 0 else e).astype(np.float32)
-        return documents
-
     def encode_query(self, text: str) -> np.ndarray:
         """Text -> embedding for search (the CLIP text tower)."""
         return self.cross_modal.encode_texts([text])[0]
@@ -728,70 +599,6 @@ class DewiPipeline:
             else None,
         }
 
-    # -- scoring ----------------------------------------------------------------
-
-    def compute_dewi_scores(
-        self,
-        documents: List[Document],
-        weights: Optional[Union[Dict[str, float], Weights]] = None,
-        delta: Optional[float] = None,
-        mode: Optional[str] = None,
-    ) -> List[Document]:
-        """Fit robust stats and score all docs in one matrix call."""
-        if not documents:
-            return []
-        scorer = self._make_scorer(weights, delta)
-        scoring_mode = mode or self.config.scoring.mode
-
-        mat = np.array(
-            [[d.signals_dict()[k] for k in SIGNAL_FIELDS] for d in documents],
-            np.float32,
-        )
-        scores = scorer.fit_and_score(mat, mode=scoring_mode).cpu().numpy()
-        for d, s in zip(documents, scores):
-            d.dewi_score = float(s)
-        self._scorer = scorer  # fitted stats, reusable for incremental docs
-        return documents
-
-    def process_stream(
-        self,
-        documents: List[Document],
-        shard_size: Optional[int] = None,
-        checkpoint_dir: Optional[PathLike] = None,
-        weights: Any = None,
-        delta: Optional[float] = None,
-        mode: Optional[str] = None,
-        progress: bool = False,
-    ) -> List[Document]:
-        """Sharded signal computation with per-shard resume + global scoring.
-
-        Corpora larger than host or device memory process in
-        ``shard_size`` chunks; each shard's signal stages checkpoint
-        independently (a restarted run skips completed shards), and robust
-        statistics are fit GLOBALLY over all shards before scoring —
-        identical results to the monolithic path.
-        """
-        if not documents:
-            return []
-        shard_size = int(shard_size or self.config.runtime.shard_size)
-        ckpt_root = Path(checkpoint_dir) if checkpoint_dir else None
-        n_shards = (len(documents) + shard_size - 1) // shard_size
-        for s in range(n_shards):
-            shard = documents[s * shard_size : (s + 1) * shard_size]
-            sub = ckpt_root / f"shard_{s:05d}" if ckpt_root else None
-            if progress:
-                print(f"Shard {s + 1}/{n_shards} ({len(shard)} docs)")
-            self.compute_signals(shard, progress=progress, checkpoint_dir=sub,
-                                 include_redundancy=False)
-        # Redundancy is cross-document: run it globally over all shards so
-        # sharding never changes scores.
-        self._redundancy_stage(
-            documents, _StageCheckpoint(ckpt_root, documents, self.mesh)
-        )
-        # Global fit+score across every shard in one fused call.
-        return self.compute_dewi_scores(documents, weights=weights,
-                                        delta=delta, mode=mode)
-
     def _make_scorer(self, weights: Any = None,
                      delta: Optional[float] = None) -> Any:
         from .scorer import DewiScorer
@@ -809,11 +616,10 @@ class DewiPipeline:
             device=self.device,
         )
 
-    # -- columnar path --------------------------------------------------------------
+    # -- the stages, over a Corpus column store ---------------------------------------
     #
-    # Same stages and numerics as compute_signals/compute_dewi_scores, but
-    # over a Corpus column store — no per-Document attribute traffic, no
-    # per-doc dict/stack in the hot loop.
+    # No per-Document attribute traffic, no per-doc dict/stack in the hot
+    # loop; the Document API above calls these.
 
     def _corpus_rows(self, corpus: Any, idx: Any, size: int,
                      cache: Any = None, dev: Any = None) -> Any:
@@ -885,13 +691,16 @@ class DewiPipeline:
         return (di, pos) if di is not None else None
 
     def compute_signals_corpus(self, corpus: Any, progress: bool = False,
-                               include_redundancy: bool = True) -> Any:
+                               include_redundancy: bool = True,
+                               _ckpt: _StageCheckpoint = _NO_CHECKPOINT) -> Any:
         """Fill ``corpus.signals`` (all 7 columns) stage by stage.
 
         ``include_redundancy=False`` skips the cross-document redundancy
-        stage — :meth:`process_stream_corpus` runs it globally after all
-        shards so sharding never changes scores (same contract as the
-        object path's ``process_stream``).
+        stage — :meth:`process_stream_corpus` and :meth:`process_stream`
+        run it globally after all shards so sharding never changes scores.
+        ``_ckpt`` (the Documents' stage checkpoints, from
+        :meth:`compute_signals` and the command line) loads each of the five
+        stages it holds instead of running it, and saves the ones it runs.
         """
         from .corpus import COL
         from .utils.progress import ProgressMeter
@@ -915,13 +724,18 @@ class DewiPipeline:
             ) else None
         )
         if tidx.size:
-            m = ProgressMeter(int(tidx.size), "text entropy",
-                              enabled=progress)
-            with span("dewi.text_entropy"):
-                means, q90s, _ = self.text_entropy.batch_compute_stats(
-                    [corpus.texts[i] for i in tidx], progress=m.update
-                )
-            m.close()
+            cached = _ckpt.load("text")
+            if cached is None:
+                m = ProgressMeter(int(tidx.size), "text entropy",
+                                  enabled=progress)
+                with span("dewi.text_entropy"):
+                    means, q90s, _ = self.text_entropy.batch_compute_stats(
+                        [corpus.texts[i] for i in tidx], progress=m.update
+                    )
+                m.close()
+                _ckpt.save("text", idx=tidx, means=means, q90s=q90s)
+            else:
+                means, q90s = cached["means"], cached["q90s"]
             sig[tidx, COL["ht_mean"]] = means
             sig[tidx, COL["ht_q90"]] = q90s
 
@@ -937,24 +751,30 @@ class DewiPipeline:
         if dev is None and iidx.size:
             dev = self._device_corpus(corpus, cache)
         if iidx.size:
-            m = ProgressMeter(int(iidx.size), "image entropy",
-                              enabled=progress)
-            with span("dewi.image_entropy"):
-                means, q90s = self.image_entropy.batch_compute_stats(
-                    self._corpus_rows(corpus, iidx,
-                                      self.image_entropy.image_size, cache,
-                                      dev=dev),
-                    progress=m.update,
-                )
-            m.close()
+            cached = _ckpt.load("image")
+            if cached is None:
+                m = ProgressMeter(int(iidx.size), "image entropy",
+                                  enabled=progress)
+                with span("dewi.image_entropy"):
+                    means, q90s = self.image_entropy.batch_compute_stats(
+                        self._corpus_rows(corpus, iidx,
+                                          self.image_entropy.image_size,
+                                          cache, dev=dev),
+                        progress=m.update,
+                    )
+                m.close()
+                _ckpt.save("image", idx=iidx, means=means, q90s=q90s)
+            else:
+                means, q90s = cached["means"], cached["q90s"]
             sig[iidx, COL["hi_mean"]] = means
             sig[iidx, COL["hi_q90"]] = q90s
 
         # Stages 3+4 share the CLIP towers: each tower encodes its modality
         # ONCE, the I_hat diagonal and the joint document embeddings both
-        # read from the same arrays.  (The object path encodes twice —
-        # batch_compute then ensure_embeddings.)
+        # read from the same arrays.
         pidx = np.nonzero(corpus.has_text & corpus.has_image)[0]
+        cached = _ckpt.load("cross_modal") if pidx.size else None
+        pairs = pidx if cached is None else pidx[:0]  # rows to encode for I_hat
         ext_mask = getattr(corpus, "ext_embedding_mask", None)
         need_emb = corpus.embeddings is None or (
             ext_mask is not None and not bool(ext_mask.all())
@@ -962,18 +782,18 @@ class DewiPipeline:
         t_emb = v_emb = None
         tpos: Dict[int, int] = {}
         vpos: Dict[int, int] = {}
-        if need_emb or pidx.size:
+        if need_emb or pairs.size:
             # Encode exactly what downstream needs: the paired docs (for
             # I_hat) plus — when embeddings must be filled — the rows NOT
             # covered by an external mask.  Encoding all of tidx/iidx with
             # a 90%-external corpus would throw away 90% of the dominant
             # stage cost (tower forwards + image transfer).
             if not need_emb:
-                t_want = v_want = pidx
+                t_want = v_want = pairs
             elif ext_mask is not None:
                 fill = ~ext_mask
-                t_want = np.union1d(pidx, tidx[fill[tidx]]).astype(np.int64)
-                v_want = np.union1d(pidx, iidx[fill[iidx]]).astype(np.int64)
+                t_want = np.union1d(pairs, tidx[fill[tidx]]).astype(np.int64)
+                v_want = np.union1d(pairs, iidx[fill[iidx]]).astype(np.int64)
             else:
                 t_want, v_want = tidx, iidx
             if t_want.size:
@@ -995,11 +815,14 @@ class DewiPipeline:
                 m.close()
                 vpos = {int(i): j for j, i in enumerate(v_want)}
         if pidx.size:
-            trows = np.asarray([tpos[int(i)] for i in pidx])
-            vrows = np.asarray([vpos[int(i)] for i in pidx])
-            sig[pidx, COL["I_hat"]] = np.sum(
-                t_emb[trows] * v_emb[vrows], axis=1
-            )
+            if cached is None:
+                trows = np.asarray([tpos[int(i)] for i in pidx])
+                vrows = np.asarray([vpos[int(i)] for i in pidx])
+                sims = np.sum(t_emb[trows] * v_emb[vrows], axis=1)
+                _ckpt.save("cross_modal", idx=pidx, sims=sims)
+            else:
+                sims = cached["sims"]
+            sig[pidx, COL["I_hat"]] = sims
 
         with span("dewi.embeddings"):
             self.ensure_embeddings_corpus(
@@ -1011,10 +834,10 @@ class DewiPipeline:
             )
         if include_redundancy:
             with span("dewi.redundancy"):
-                self._redundancy_corpus(corpus, cache=cache)
+                self._redundancy_corpus(corpus, cache=cache, ckpt=_ckpt)
         with span("dewi.noise"):
             return self._noise_corpus(corpus, cache=cache, dev=dev,
-                                      progress=progress)
+                                      progress=progress, ckpt=_ckpt)
 
     def ensure_embeddings_corpus(self, corpus: Any, cache: Any = None,
                                  dev: Any = None,
@@ -1022,7 +845,7 @@ class DewiPipeline:
                                  _t_idx: Any = None,
                                  _v_idx: Any = None) -> Any:
         """Fill ``corpus.embeddings`` from the CLIP towers (vectorized
-        combine; same semantics as :meth:`ensure_embeddings`).
+        combine).
 
         ``_t_emb``/``_v_emb`` (with their doc-index vectors ``_t_idx``/
         ``_v_idx``) let :meth:`compute_signals_corpus` pass the tower
@@ -1030,8 +853,7 @@ class DewiPipeline:
         re-encode as long as they cover the rows being filled.
 
         Partial external embeddings (``corpus.ext_embedding_mask``) keep
-        their supplied rows; only the unmasked rows are CLIP-filled —
-        mirroring the object path's per-doc ``ensure_embeddings``.
+        their supplied rows; only the unmasked rows are CLIP-filled.
         """
         ext_mask = getattr(corpus, "ext_embedding_mask", None)
         filled = getattr(corpus, "clip_filled_mask", None)
@@ -1107,9 +929,24 @@ class DewiPipeline:
         corpus.embeddings = emb
         return corpus
 
-    def _redundancy_corpus(self, corpus: Any, cache: Any = None) -> Any:
+    def _redundancy_corpus(self, corpus: Any, cache: Any = None,
+                           ckpt: _StageCheckpoint = _NO_CHECKPOINT) -> Any:
+        """Global redundancy over an embedded corpus.
+
+        Modes (config.redundancy): ``text_sim: minhash|simhash`` hashes text
+        docs; ``image_sim: phash`` perceptual-hashes image docs; anything
+        else scores docs by embedding-space max-offdiag similarity.  When
+        hash modes cover only one modality, the remaining docs fall back to
+        the embedding mode, and a doc covered by several modes keeps its
+        max; ``cross_modal_density`` adds the multimodal docs' density in
+        their joint text+image embedding space.
+        """
         from .corpus import COL
 
+        cached = ckpt.load("redundancy")
+        if cached is not None:
+            corpus.signals[:, COL["redundancy"]] = cached["scores"]
+            return corpus
         n = len(corpus)
         scores = np.zeros(n, np.float32)
         covered = np.zeros(n, bool)
@@ -1143,69 +980,67 @@ class DewiPipeline:
                     ),
                 )
         corpus.signals[:, COL["redundancy"]] = scores
+        ckpt.save("redundancy", scores=scores)
         return corpus
 
     def _noise_corpus(self, corpus: Any, cache: Any = None,
-                      dev: Any = None, progress: bool = False) -> Any:
+                      dev: Any = None, progress: bool = False,
+                      ckpt: _StageCheckpoint = _NO_CHECKPOINT) -> Any:
         from .corpus import COL
         from .signals.noise import BLUR_SIZE
         from .utils.progress import ProgressMeter
 
+        cached = ckpt.load("noise")
+        if cached is not None:
+            corpus.signals[:, COL["noise"]] = cached["scores"]
+            return corpus
         n = len(corpus)
         texts = corpus.texts if corpus.texts is not None else [None] * n
+        present = None
         # Doc-aligned device corpus within the blur pass's fidelity window:
         # run blur+skin straight off device memory, present-masked.
         if (
             dev is not None and dev[1] is None and len(dev[0]) == n
             and dev[0].size <= BLUR_SIZE and dev[0].shape[2] <= BLUR_SIZE
         ):
-            imgs4 = dev[0].base
+            images, present = dev[0].base, corpus.has_image
         elif (
             isinstance(corpus.images, np.ndarray)
             and corpus.images.ndim == 4 and len(corpus.images) == n
         ):
             # Dense host corpus: the masked array path batches eligible
             # shapes and degrades to the per-doc loop internally otherwise.
-            imgs4 = corpus.images
-        else:
-            imgs4 = None
-        if imgs4 is not None:
-            m = ProgressMeter(n, "noise", enabled=progress)
-            corpus.signals[:, COL["noise"]] = self.noise.batch_compute(
-                texts=texts, images=imgs4,
-                present=corpus.has_image, progress=m.update,
-            )
-            m.close()
-            return corpus
-        if cache is not None and cache.cache is not None and \
+            images, present = corpus.images, corpus.has_image
+        elif cache is not None and cache.cache is not None and \
                 cache.cache.base_size >= BLUR_SIZE:
-            img_list = [
+            images = [
                 cache.source(i) if corpus.has_image[i] else None
                 for i in range(n)
             ]
         elif corpus.images is None:
-            img_list = [None] * n
+            images = [None] * n
         else:
-            img_list = [
+            images = [
                 corpus.images[i] if corpus.has_image[i] else None
                 for i in range(n)
             ]
         m = ProgressMeter(n, "noise", enabled=progress)
         corpus.signals[:, COL["noise"]] = self.noise.batch_compute(
-            texts=corpus.texts if corpus.texts is not None else [None] * n,
-            images=img_list,
-            progress=m.update,
+            texts=texts, images=images, present=present, progress=m.update,
         )
         m.close()
+        ckpt.save("noise", scores=corpus.signals[:, COL["noise"]])
         return corpus
 
     def process_corpus(self, corpus: Any, weights: Any = None,
                        delta: Optional[float] = None,
                        mode: Optional[str] = None,
-                       progress: bool = False) -> Any:
-        """Signals + fused fit-and-score, columnar end to end."""
+                       progress: bool = False,
+                       _ckpt: _StageCheckpoint = _NO_CHECKPOINT) -> Any:
+        """Signals + fused fit-and-score, columnar end to end (``_ckpt``:
+        see :meth:`compute_signals_corpus`)."""
         with span("dewi.process_corpus"):
-            self.compute_signals_corpus(corpus, progress=progress)
+            self.compute_signals_corpus(corpus, progress=progress, _ckpt=_ckpt)
             return self._score_corpus(corpus, weights, delta, mode)
 
     def _score_corpus(self, corpus: Any, weights: Any, delta: Optional[float],
@@ -1218,17 +1053,6 @@ class DewiPipeline:
             ).cpu().numpy().astype(np.float32)
         self._scorer = scorer
         return corpus
-
-    @staticmethod
-    def _slice_images(images: Any, a: int, b: int) -> Any:
-        """Row-range view of any supported ``Corpus.images`` container.
-
-        Plain ``images[a:b]`` covers all three: ndarray view, list slice,
-        and PackedImages (whose ``__getitem__`` forwards slices to the
-        mmap).  Never probe ``.data`` — every ndarray has one (a
-        memoryview) and taking it breaks row indexing downstream.
-        """
-        return None if images is None else images[a:b]
 
     @staticmethod
     def _corpus_shard_digest(corpus: Any, a: int, b: int) -> str:
@@ -1295,7 +1119,7 @@ class DewiPipeline:
         than device memory or RAM stream in ``shard_size`` row ranges (each
         shard's device-resident image upload covers only its slice), completed
         shards resume from an ``.npz`` checkpoint keyed to a content
-        digest, and — like the object path — the cross-document redundancy
+        digest, and the cross-document redundancy
         stage and the robust-stat fit run GLOBALLY so sharding never
         changes a single score.
         """
@@ -1310,12 +1134,12 @@ class DewiPipeline:
                 p.name for p in ckpt_root.glob("shard_*") if p.is_dir()
             )
             if stale:
-                # Object-path process_stream wrote per-stage npz files
-                # under shard_NNNNN/ directories; this columnar format is
-                # one .npz per shard.  Be loud rather than silently
+                # The Document API's process_stream writes per-stage npz
+                # files under shard_NNNNN/ directories; this columnar format
+                # is one .npz per shard.  Be loud rather than silently
                 # recomputing everything a user thought was checkpointed.
                 logger.warning(
-                    "%s holds %d object-path shard directories (e.g. %s) "
+                    "%s holds %d Document-API shard directories (e.g. %s) "
                     "this columnar run cannot resume from; recomputing. "
                     "Use DewiPipeline.process_stream for the old format.",
                     ckpt_root, len(stale), stale[0],
@@ -1372,7 +1196,11 @@ class DewiPipeline:
                 texts=(
                     corpus.texts[a:b] if corpus.texts is not None else None
                 ),
-                images=self._slice_images(corpus.images, a, b),
+                # A row-range view of any images container: an ndarray view,
+                # a list slice, or PackedImages (its __getitem__ slices the
+                # mmap).  Never ``.data``: every ndarray has one.
+                images=(None if corpus.images is None
+                        else corpus.images[a:b]),
                 embeddings=(
                     np.array(orig_ext[a:b], np.float32)
                     if orig_ext is not None else None
@@ -1439,8 +1267,7 @@ class DewiPipeline:
                 index.encoder = {"source": "cross_modal",
                                  **self.encoder_provenance()}
             elif filled is not None and bool(filled.any()):
-                # Some rows external, some CLIP-filled — same "mixed"
-                # provenance the object path records (build_index below).
+                # Some rows external, some CLIP-filled.
                 index.encoder = {"source": "mixed", **self.encoder_provenance()}
             else:
                 index.encoder = {"source": "external"}
@@ -1454,7 +1281,7 @@ class DewiPipeline:
 
     def _make_index(self, dim: int, **index_kwargs: Any) -> Any:
         """Config-driven :class:`DewiIndex` construction (backend knobs,
-        bf16 storage) shared by the Document and columnar build paths."""
+        bf16 storage)."""
         from .index import DewiIndex
         from .index.facade import IndexBackend
 
@@ -1494,39 +1321,6 @@ class DewiPipeline:
         kwargs.update(index_kwargs)
         kwargs.setdefault("device", self.device)
         return DewiIndex(dim=dim, **kwargs)
-
-    def build_index(self, documents: List[Document],
-                    **index_kwargs: Any) -> Any:
-        """Documents -> built :class:`DewiIndex` (embeddings + payloads).
-        Under a mesh: rank 0's index, ``None`` on the other ranks."""
-        if not documents:
-            raise ValueError("No documents to index")
-        self.ensure_embeddings(documents)
-        return _on_rank0(self.mesh, lambda: self._index_documents(documents, **index_kwargs))
-
-    def _index_documents(self, documents: List[Document], **index_kwargs: Any) -> Any:
-        n_clip = sum(
-            1 for d in documents if d.doc_id in self._clip_embedded_ids
-        )
-        index = self._make_index(dim=len(documents[0].embedding),
-                                 **index_kwargs)
-        if n_clip == 0:
-            # Every embedding was supplied externally — the CLIP towers were
-            # never consulted, so recording their identity would let search
-            # confidently encode queries with an unrelated model.
-            index.encoder = {"source": "external"}
-        else:
-            index.encoder = {
-                "source": (
-                    "cross_modal" if n_clip == len(documents) else "mixed"
-                ),
-                **self.encoder_provenance(),
-            }
-        emb = np.stack([d.embedding for d in documents]).astype(np.float32)
-        pay = np.stack([d.payload().to_array() for d in documents])
-        index.add_batch([d.doc_id for d in documents], emb, pay)
-        index.build()
-        return index
 
 
 __all__ = ["Document", "DewiPipeline", "create_document"]

@@ -31,9 +31,8 @@ by fetching a value.  Deliberate differences from the reference's keys:
   ``|object - columnar|`` over ``max(|columnar|, 1)`` of the two paths'
   signal matrices on the same docs (``rel_dev_object_vs_columnar``), the
   worst column; ``dewi_rel_dev_object_vs_columnar`` the same for their
-  DEWI scores, whose median/MAD z-scores magnify the columns' rounding.
-  It turns the profile into a check (the bfloat16 models see other batch
-  shapes on the two paths, so it is bfloat16 rounding there);
+  DEWI scores.  It checks the ``Document`` API, a veneer that runs the
+  columnar stages on the Documents' columns, so it should read 0;
 * ``card``: the card's name and power limit (``nvidia-smi``);
 * no ``--warm-docs``: the reference parses it and never reads it (its
   warm-up is the full-size cold run, as here).

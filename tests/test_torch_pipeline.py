@@ -220,8 +220,8 @@ def test_columnar_path_matches_reference(f32):
     pc = f32["port"].process_corpus(Corpus.from_documents(_port_docs(spec)))
     rc = f32["ref"].process_corpus(j_corpus.Corpus.from_documents(_ref_docs(spec)))
     _check_columns(pc.signals, rc.signals, f32["port"], spec, pc.embeddings, rc.embeddings)
-    # The columnar path equals the object path on the same pipeline.
-    assert rel_dev(pc.signals, _doc_columns(f32["pdocs"])) <= 1e-6
+    # The Document API is a veneer over the same columnar stages.
+    assert np.array_equal(pc.signals, _doc_columns(f32["pdocs"]))
     assert pc.clip_embedded and rc.clip_embedded
     assert np.isfinite(pc.dewi).all() and pc.dewi.shape == (N_DOCS,)
 
@@ -355,6 +355,42 @@ def test_process_stream_corpus_equals_monolithic(f32, tmp_path):
     assert len(list(tmp_path.glob("shard_*.npz"))) == 6
     docs = port.process_stream(_port_docs(spec), shard_size=7)
     assert rel_dev(_doc_columns(docs), mono.signals) <= 1e-6
+
+
+def test_document_api_records_the_stage_spans(f32, tmp_path):
+    """``compute_signals`` with stage checkpoints runs the columnar stages,
+    so a recording profiler session names them as spans."""
+    from dewi_tpu_torch.utils.profiling import reset_trace_stats, trace_stats
+
+    reset_trace_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        f32["port"].compute_signals(_port_docs(f32["spec"][:12]), checkpoint_dir=tmp_path)
+    spans = set(trace_stats()["spans"])
+    reset_trace_stats()
+    assert {"dewi.text_entropy", "dewi.embeddings", "dewi.redundancy", "dewi.noise"} <= spans
+    assert (tmp_path / "noise.npz").exists()
+
+
+def test_process_stream_resumes_from_its_shard_checkpoints(f32, tmp_path, monkeypatch):
+    """``process_stream`` keeps each shard's stages under ``shard_NNNNN/``
+    and the global redundancy beside them; a second call loads every stage."""
+    port, spec = f32["port"], f32["spec"][:12]
+    first = port.process_stream(_port_docs(spec), shard_size=5, checkpoint_dir=tmp_path)
+    assert {p.name for p in tmp_path.iterdir()} == {
+        "redundancy.npz", "shard_00000", "shard_00001", "shard_00002"}
+    assert {p.name for p in (tmp_path / "shard_00000").iterdir()} == {
+        "text.npz", "image.npz", "cross_modal.npz", "noise.npz"}
+
+    def recomputed(*a, **k):
+        raise AssertionError("recomputed")
+
+    monkeypatch.setattr(port.text_entropy, "batch_compute_stats", recomputed)
+    monkeypatch.setattr(port.image_entropy, "batch_compute_stats", recomputed)
+    monkeypatch.setattr(port.noise, "batch_compute", recomputed)
+    monkeypatch.setattr(port.redundancy, "score", recomputed)
+    second = port.process_stream(_port_docs(spec), shard_size=5, checkpoint_dir=tmp_path)
+    assert np.array_equal(_doc_columns(second), _doc_columns(first))
+    assert [d.dewi_score for d in second] == [d.dewi_score for d in first]
 
 
 @pytest.mark.parametrize("redundancy", [
