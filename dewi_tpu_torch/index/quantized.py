@@ -78,8 +78,8 @@ class QuantizedIndex(BaseIndex):
     def _fused_bmax_block(self) -> int:
         """Routing block of the fused stage-1 + block-max kernel, or 0.
 
-        Engaged at every batch size (quantized_search runs batches above
-        32 queries in 32-query groups)."""
+        Engaged at every batch size (quantized_search launches stage 1 per
+        32 queries and selects and refines the whole batch at once)."""
         cap = self.store.capacity
         if not (self.blockmax_select and self.use_pallas
                 and cap % BMAX_BLOCK == 0 and cap >= 4 * BMAX_BLOCK

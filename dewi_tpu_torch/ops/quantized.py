@@ -15,26 +15,34 @@ One routing difference, which changes no result of the TPU route: the
 TPU's ``lax.approx_max_k`` candidate select becomes an exact
 ``torch.topk``.
 
+A batch runs as one pipeline at every Q: the fold, the validity mask and
+the query quantization once a call, stage 1 in launches of 32 queries back
+to back, then one select and one refine over all queries.  Each step is
+row-independent, so a query's result is the one the JAX package's 32-query
+``lax.map`` groups give it.
+
 While a ``torch.profiler`` session records, each search names its stages
-as spans (``dewi.search.fold``, ``.stage1``, ``.select``, ``.refine``, and
-``dewi.search.group`` for each 32-query group of the chunked route).
+as spans (``dewi.search.fold``, ``.stage1``, ``.select``, ``.refine``, once
+a call) and the fused route counts its 32-query stage-1 launches
+(``search.stage1_groups``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import cuda_search
 from .cuda_search import BLOCKMAX_SUB
-from .similarity import NEG_INF, Scalar, f32_scalar, folded_dot, l2_normalize, s8_folded_dot
+from .similarity import NEG_INF, folded_dot, l2_normalize, s8_folded_dot
 
-# Above this query count the blockmax refine gathers the winning blocks'
-# stage-1 SCORES, takes top-m within them and row-gathers only m docs,
-# instead of gathering s*128 rows per query; the fused route instead runs
-# the small-Q pipeline per group of this many queries.
+# Above this query count the unfused blockmax refine gathers the winning
+# blocks' stage-1 SCORES, takes top-m within them and row-gathers only m
+# docs, instead of gathering s*128 rows per query; the fused route keeps
+# the block-granular gather and launches stage 1 per this many queries.
 BLOCKMAX_REFINE_MAX_Q = 32
 
 
@@ -94,8 +102,8 @@ def quantized_search(
     payloads: torch.Tensor,  # [cap, 8]
     queries: torch.Tensor,   # [Q, D]
     n_valid: int,
-    eta: Scalar,
-    entropy_pref: Scalar,
+    eta: float,
+    entropy_pref: float,
     k: int,
     m: int,
     normalize: bool = True,
@@ -114,10 +122,10 @@ def quantized_search(
     the top-s 128-doc blocks by stage-1 max with a margin of k+2 blocks
     (2(k+2) on the int4 grid); ``fused_bmax`` takes the block maxima
     straight from the fused ``bmax``/``bmax_s8``/``bmax_s4`` kernel so no ``[Q, cap]``
-    matrix is written, and runs batches above 32 queries in 32-query
-    groups.  ``int4_packed`` reads ``emb_i8`` as the nibble-packed corpus
-    (the index keeps int4 packed, so the JAX ``int4_values`` layout has no
-    counterpart here).  ``int8_queries`` quantizes the queries to s8 and
+    matrix is written (one launch per 32 queries, then one select and
+    refine over the whole batch).  ``int4_packed`` reads ``emb_i8`` as the
+    nibble-packed corpus (the index keeps int4 packed, so the JAX
+    ``int4_values`` layout has no counterpart here).  ``int8_queries`` quantizes the queries to s8 and
     takes the s8 kernels (``bmax_s8``, ``scores_matrix_s8``); without a
     kernel its exact integer dot runs in plain PyTorch.  A fused
     ``kernel_block`` that is not a multiple of 16384 rows (and not the
@@ -126,26 +134,7 @@ def quantized_search(
     """
     device = emb_i8.device
     int4_grid = int4_packed  # the wider margins follow the values, not the layout
-    with span("dewi.search.fold"):
-        q = queries.to(torch.float32).contiguous()
-        if normalize:
-            q = l2_normalize(q)
-        eta_t = f32_scalar(eta, device)
-        ep_t = f32_scalar(entropy_pref, device)
-
-        # Fold: adj = acc * mult + add, with the dequant scale, (1-eta), the
-        # re-rank, the L2 row norm and the validity mask in mult/add.  The L2
-        # per-query constant -(1-eta)|q|^2 is omitted: stage-1 values are
-        # only used for selection, and stage 2 recomputes the scores exactly.
-        ent = 0.5 * (payloads[:, 1] + payloads[:, 3])
-        one_m_eta = 1.0 - eta_t
-        add = eta_t * payloads[:, 0] + ep_t * ent
-        if normalize:
-            mult = one_m_eta * scales
-        else:
-            mult = 2.0 * one_m_eta * scales
-            add = add - one_m_eta * sqnorms
-    nq, cap = q.shape[0], emb_i8.shape[0]
+    nq, cap = queries.shape[0], emb_i8.shape[0]
     blockmax_ok = (blockmax_select and cap % BLOCKMAX_SUB == 0
                    and cap >= 4 * BLOCKMAX_SUB)
     use_fused = False
@@ -170,28 +159,31 @@ def quantized_search(
             emb_i8 = unpack_int4(emb_i8)
             int4_packed = False
 
-    if use_fused and nq > BLOCKMAX_REFINE_MAX_Q:
-        # Chunk into 32-query groups, the last padded with q[0], and run
-        # the small-Q fused pipeline per group (the JAX lax.map dispatch).
-        g = BLOCKMAX_REFINE_MAX_Q
-        n_groups = -(-nq // g)
-        pad_rows = n_groups * g - nq
-        qpad = torch.cat([q, q[:1].expand(pad_rows, q.shape[1])]) if pad_rows else q
-        outs = []
-        for i in range(n_groups):
-            with span("dewi.search.group"):
-                outs.append(quantized_search(
-                    emb_i8, scales, emb_f32, sqnorms, payloads,
-                    qpad[i * g:(i + 1) * g], n_valid, eta_t, ep_t, k=k, m=m,
-                    normalize=normalize, kernel_stage1=True,
-                    kernel_block=kernel_block, int8_queries=int8_queries,
-                    bf16_scores=bf16_scores, blockmax_select=True,
-                    fused_bmax=True, int4_packed=int4_packed,
-                ))
-        return (torch.cat([o[0] for o in outs])[:nq],
-                torch.cat([o[1] for o in outs])[:nq])
-
+    # The DEWI scalars as host f32 values, so that no upload sits inside
+    # the call; ``1 - eta`` rounds in f32 as the JAX package's f32 scalars do.
+    eta_f = float(np.float32(eta))
+    ep_f = float(np.float32(entropy_pref))
+    one_m_eta = float(np.float32(1.0) - np.float32(eta))
     with span("dewi.search.fold"):
+        q = queries.to(torch.float32).contiguous()
+        if normalize:
+            q = l2_normalize(q)
+            if use_fused and nq > BLOCKMAX_REFINE_MAX_Q:
+                # The JAX package's 32-query groups normalise their already
+                # normalised queries once more, which moves some bits.
+                q = l2_normalize(q)
+
+        # Fold: adj = acc * mult + add, with the dequant scale, (1-eta), the
+        # re-rank, the L2 row norm and the validity mask in mult/add.  The L2
+        # per-query constant -(1-eta)|q|^2 is omitted: stage-1 values are
+        # only used for selection, and stage 2 recomputes the scores exactly.
+        ent = 0.5 * (payloads[:, 1] + payloads[:, 3])
+        add = eta_f * payloads[:, 0] + ep_f * ent
+        if normalize:
+            mult = one_m_eta * scales
+        else:
+            mult = 2.0 * one_m_eta * scales
+            add = add - one_m_eta * sqnorms
         valid = torch.arange(cap, device=device) < n_valid
         if bf16_scores and not use_fused:
             # Centre the additive term on its valid-row mean (a per-query
@@ -205,6 +197,10 @@ def quantized_search(
     bmax: Optional[torch.Tensor] = None
     with span("dewi.search.stage1"):
         if use_fused:
+            # The wrappers launch their kernel once per 32 queries, back to
+            # back, into one [Q, cap/128] result; a query's maxima do not
+            # depend on the others in its launch.
+            count("search.stage1_groups", -(-nq // BLOCKMAX_REFINE_MAX_Q))
             if int4_packed:
                 q_i8, q_scale = quantize_rows(q)
                 bmax = cuda_search.bmax_s4(emb_i8, mult, add, q_i8, q_scale)
@@ -244,8 +240,7 @@ def quantized_search(
             _, bid = torch.topk(bmax, s, dim=1)
             offs = torch.arange(BLOCKMAX_SUB, device=device, dtype=bid.dtype)
             cand = (bid[:, :, None] * BLOCKMAX_SUB + offs).reshape(nq, s * BLOCKMAX_SUB)
-            if nq > BLOCKMAX_REFINE_MAX_Q:
-                assert adj1 is not None
+            if adj1 is not None and nq > BLOCKMAX_REFINE_MAX_Q:
                 cs = torch.gather(
                     adj1.view(nq, nb, BLOCKMAX_SUB), 1,
                     bid[:, :, None].expand(nq, s, BLOCKMAX_SUB),
@@ -269,8 +264,8 @@ def quantized_search(
         sim2 = torch.einsum("qd,qmd->qm", q, ce.to(torch.float32))
         if not normalize:
             sim2 = 2.0 * sim2 - csq - torch.sum(q * q, dim=-1, keepdim=True)
-        adj2 = (one_m_eta * sim2 + eta_t * cp[..., 0]
-                + ep_t * 0.5 * (cp[..., 1] + cp[..., 3]))
+        adj2 = (one_m_eta * sim2 + eta_f * cp[..., 0]
+                + ep_f * 0.5 * (cp[..., 1] + cp[..., 3]))
         adj2 = torch.where(cand < n_valid, adj2, torch.full_like(adj2, NEG_INF))
         scores, pos = torch.topk(adj2, k, dim=1)
         return scores, torch.gather(cand, 1, pos)

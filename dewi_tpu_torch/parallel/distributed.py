@@ -162,7 +162,7 @@ class ShardedQuantizedSearcher:
                       int4_packed=self.int4_storage)
         # Above MAX_QUERIES queries without the fused kernel: plain stage 1
         # (a launch holds at most that many queries on chip), block-max
-        # selection kept; with it, quantized_search runs 32-query groups.
+        # selection kept; with it, quantized_search launches stage 1 per 32 queries.
         self._fn_large = make_sharded_quantized_search(mesh, k, m, **common)
         self._fn_small = (
             make_sharded_quantized_search(mesh, k, m, kernel_stage1=self._pallas_capable,

@@ -22,6 +22,7 @@ from dewi_tpu_torch import (DewiIndex, DewiScorer, Payload, Signals, Weights,
 from dewi_tpu_torch.index import DocStore
 from dewi_tpu_torch.index import ExactIndex as ExactIndexPort
 from dewi_tpu_torch.ops import cuda_search
+from dewi_tpu_torch.utils import profiling as prof
 
 from test_torch_search import assert_same_topk
 
@@ -277,16 +278,23 @@ def test_index_routes_to_fused_kernels(corpus, monkeypatch):
 
 
 def test_int8_query_tier_in_query_groups(corpus, monkeypatch):
-    """Above 32 queries the int8-query tier runs ``bmax_s8`` once per
-    32-query group (the last one padded) and still returns JAX's answers."""
+    """Above 32 queries the int8-query tier calls ``bmax_s8`` once with
+    every query (it launches its kernel per 32-query group, the last of 8,
+    which the search counts) and still returns JAX's answers."""
     port, ref = _pair(corpus, "int8", int8_queries=True)
     calls = []
     fn = cuda_search.bmax_s8
     monkeypatch.setattr(cuda_search, "bmax_s8",
                         lambda *a, **k: calls.append(a[3].shape[0]) or fn(*a, **k))
     q = np.random.default_rng(5).normal(size=(40, DIM)).astype(np.float32)
-    s, i = port.search_batch(q, k=10, eta=ETA, entropy_pref=EP)
-    assert calls == [32, 32]
+    prof.reset_trace_stats()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            s, i = port.search_batch(q, k=10, eta=ETA, entropy_pref=EP)
+        assert prof.trace_stats()["counters"] == {"search.stage1_groups": 2}
+    finally:
+        prof.reset_trace_stats()
+    assert calls == [40]
     s_ref, i_ref = ref.search_batch(q, k=10, eta=ETA, entropy_pref=EP)
     assert_same_topk(s, i, s_ref, i_ref)
 

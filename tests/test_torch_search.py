@@ -69,7 +69,7 @@ def _quantized_args(emb, pay, sqn, q, int4):
     return jargs, targs
 
 
-@pytest.mark.parametrize("nq", [3, 40])
+@pytest.mark.parametrize("nq", [3, 40, 100])
 @pytest.mark.parametrize("space", ["cosine", "l2"])
 @pytest.mark.parametrize("int4", [False, True])
 def test_quantized_search_fused_route(nq, space, int4):
@@ -137,7 +137,7 @@ def test_quantized_search_s8_kernel_route_matches_jax():
     assert_same_topk(s, i, s_ref, i_ref)
 
 
-@pytest.mark.parametrize("nq", [3, 40])
+@pytest.mark.parametrize("nq", [3, 40, 100])
 @pytest.mark.parametrize("block", [512, 1024, CAP])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("int4,int8_queries", [(False, False), (False, True), (True, True)])
@@ -159,6 +159,31 @@ def test_quantized_search_block_routes(nq, block, fused, int4, int8_queries):
         int8_queries=int8_queries, blockmax_select=True, fused_bmax=fused,
         int4_packed=int4)
     assert_same_topk(s, i, s_ref, i_ref)
+
+
+@pytest.mark.parametrize("space", ["cosine", "l2"])
+@pytest.mark.parametrize("int4", [False, True])
+def test_fused_batch_equals_its_32_query_slices(space, int4):
+    """A fused call of 100 queries runs one pipeline (four stage-1 launches,
+    the last of 4 queries, then one select and one refine) and gives each
+    query what the small-Q body gives its 32-row slice, as the JAX
+    package's 32-query groups do.  Under cosine the slices get the
+    normalised queries, which the groups normalise once more."""
+    normalize = space == "cosine"
+    emb, pay, sqn = _corpus(21, normalize)
+    q = np.random.default_rng(22).normal(size=(100, D)).astype(np.float32)
+    _, targs = _quantized_args(emb, pay, sqn, q, int4)
+    kw = dict(k=10, m=320 if int4 else 80, normalize=normalize, kernel_stage1=True,
+              kernel_block=CAP, int8_queries=True, blockmax_select=True, fused_bmax=True,
+              int4_packed=int4)
+    s, i = tq.quantized_search(*targs, **kw)
+    qt = targs[5]
+    if normalize:
+        qt = tsim.l2_normalize(qt)
+    parts = [tq.quantized_search(*targs[:5], qt[j:j + 32], *targs[6:], **kw)
+             for j in range(0, 100, 32)]
+    torch.testing.assert_close(s, torch.cat([p[0] for p in parts]), rtol=0, atol=1e-6)
+    assert torch.equal(i, torch.cat([p[1] for p in parts]))
 
 
 def _saturated_s8(nq, cap=2048, d=2048, seed=27):

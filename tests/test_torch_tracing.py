@@ -42,16 +42,8 @@ CORPUS_PARENTS = {
     "dewi.text_entropy.buckets": {"dewi.text_entropy"},
     "dewi.text_entropy.fetch": {"dewi.text_entropy.long", "dewi.text_entropy.buckets"},
 }
-# The chunked route (Q > 32): the outer call folds, then runs each group.
-CHUNKED_PARENTS = {
-    "dewi.search_batch": {None},
-    "dewi.search.group": {"dewi.search_batch"},
-    "dewi.search.fold": {"dewi.search_batch", "dewi.search.group"},
-    "dewi.search.stage1": {"dewi.search.group"},
-    "dewi.search.select": {"dewi.search.group"},
-    "dewi.search.refine": {"dewi.search.group"},
-}
-DIRECT_PARENTS = {
+# One pipeline a call at every Q: each stage once, under the call.
+SEARCH_PARENTS = {
     "dewi.search_batch": {None},
     "dewi.search.fold": {"dewi.search_batch"},
     "dewi.search.stage1": {"dewi.search_batch"},
@@ -230,15 +222,16 @@ def test_corpus_spans_nest(pipe):
     _check_nesting(events, prof.trace_stats(), CORPUS_PARENTS)
 
 
-@pytest.mark.parametrize("nq,parents", [(40, CHUNKED_PARENTS), (8, DIRECT_PARENTS)])
-def test_search_spans_nest(index, nq, parents):
+@pytest.mark.parametrize("nq,groups", [(40, 2), (8, 1)])
+def test_search_spans_nest(index, nq, groups):
+    """The fused route's stages open once a call; it counts its 32-query
+    stage-1 launches."""
     _, events = _traced(lambda: index.search_batch(_queries(nq), k=10))
     stats = prof.trace_stats()
-    _check_nesting(events, stats, parents)
-    groups = -(-nq // 32) if nq > 32 else 0
-    assert stats["spans"]["dewi.search.stage1"]["count"] == max(groups, 1)
-    assert stats["spans"]["dewi.search.fold"]["count"] == (1 + 2 * groups if groups else 2)
-    assert stats["counters"] == {}
+    _check_nesting(events, stats, SEARCH_PARENTS)
+    assert {name: rec["count"] for name, rec in stats["spans"].items()} == \
+        dict.fromkeys(SEARCH_PARENTS, 1)
+    assert stats["counters"] == {"search.stage1_groups": groups}
 
 
 @pytest.mark.parametrize("path", ["batch_compute_stats", "batch_compute"])
